@@ -1,0 +1,93 @@
+"""SAM2 top-level model, counterpart of `rga3_tpu/models/sam2/model.py`:
+image encoding (`forward_image`) and the language-prompted mask decode
+(`decode_features_with_language`). The memory attention and memory encoder
+of the tracker are not on the ported path yet."""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn as nn
+
+from ...ops.resize import resize_bilinear, sam_normalize_maybe
+from .config import Sam2Config
+from .layers import MLP
+from .mask_decoder import MaskDecoder
+from .neck import ImageEncoder, conv1x1
+from .prompt_encoder import PromptEncoder
+
+
+class Sam2Model(nn.Module):
+    def __init__(self, cfg: Sam2Config, **factory):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_dim
+        self.image_encoder = ImageEncoder(cfg, **factory)
+        self.sam_prompt_encoder = PromptEncoder(cfg, **factory)
+        self.sam_mask_decoder = MaskDecoder(cfg, **factory)
+        self.no_mem_embed = nn.Parameter(torch.zeros(1, 1, d, **factory))
+        self.no_obj_ptr = nn.Parameter(torch.zeros(1, d, **factory))
+        self.obj_ptr_proj = MLP(d, d, d, 3, **factory)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.no_mem_embed.dtype
+
+    def forward_image(self, images: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+        """images (B, H, W, 3): uint8 (normalized here) or normalized float.
+        Returns the FPN features, the two high-resolution levels already
+        projected by the decoder's conv_s0/conv_s1."""
+        x = sam_normalize_maybe(images).to(self.dtype)
+        out = self.image_encoder(x)
+        fpn = list(out["backbone_fpn"])
+        fpn[0] = conv1x1(self.sam_mask_decoder.conv_s0, fpn[0])
+        fpn[1] = conv1x1(self.sam_mask_decoder.conv_s1, fpn[1])
+        return {"backbone_fpn": fpn, "vision_pos_enc": out["vision_pos_enc"]}
+
+    def forward_sam_heads(self, backbone_features, high_res_features,
+                          language_embd: Optional[torch.Tensor] = None,
+                          multimask_output: bool = True):
+        cfg = self.cfg
+        b = backbone_features.shape[0]
+        sparse, dense = self.sam_prompt_encoder(batch=b)
+        sparse = sparse.to(self.dtype)
+        if language_embd is not None:
+            sparse = torch.cat([sparse, language_embd.to(self.dtype)], dim=1)
+        image_pe = self.sam_prompt_encoder.dense_pe()
+        low_res_multimasks, ious, sam_tokens_out, object_score_logits = (
+            self.sam_mask_decoder(
+                backbone_features, image_pe, sparse, dense.to(self.dtype),
+                high_res_features, multimask_output=multimask_output,
+            )
+        )
+        low_res_multimasks = low_res_multimasks.float()
+        # select the best-IoU mask at low resolution, then upscale only it
+        # (bilinear resize is per channel, so this equals resize-then-select)
+        best = ious.argmax(dim=-1)
+        bidx = torch.arange(b, device=best.device)
+        low_res_masks = low_res_multimasks[bidx, best][:, None]
+        sam_output_token = sam_tokens_out[bidx, best]
+        high_res_masks = resize_bilinear(
+            low_res_masks, (cfg.image_size, cfg.image_size)
+        )
+        obj_ptr = self.obj_ptr_proj(sam_output_token)
+        appearing = (object_score_logits > 0).to(obj_ptr.dtype)
+        obj_ptr = appearing * obj_ptr + (1.0 - appearing) * self.no_obj_ptr
+        return {
+            "low_res_multimasks": low_res_multimasks,
+            "ious": ious,
+            "low_res_masks": low_res_masks,
+            "high_res_masks": high_res_masks,
+            "obj_ptr": obj_ptr,
+            "object_score_logits": object_score_logits,
+        }
+
+    def decode_features_with_language(self, s0, s1, s2, language_embd,
+                                      multimask_output: bool = True):
+        """Language decode from precomputed FPN features: every frame is a
+        conditioning frame, so the stride-16 feature gets `no_mem_embed`."""
+        pix = s2 + self.no_mem_embed.reshape(1, 1, 1, -1).to(s2.dtype)
+        return self.forward_sam_heads(
+            pix, (s0, s1), language_embd=language_embd,
+            multimask_output=multimask_output,
+        )

@@ -1,0 +1,101 @@
+"""Guards of the PyTorch port: the card by default, no CPU fallback inside a
+kernel wrapper for CUDA tensors, and no import of JAX or of the JAX package."""
+import ast
+import os
+import sys
+
+import pytest
+import torch
+
+from rga3_tpu_torch import device as port_device
+from rga3_tpu_torch.ops import _kernels
+from rga3_tpu_torch.ops import attention as tatt
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "rga3_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rga3_tpu")
+LAZY_ONLY = ("triton", "PIL", "transformers")  # never at module top level
+TOP_LEVEL_ALLOWED = {"torch", "numpy", "scipy", "einops"}
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imports(tree):
+    """(module, is_top_level) for every absolute import in the tree; an
+    import directly in the module body, or under a top-level if/try, runs at
+    import time."""
+    out = []
+    top_nodes = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            top_nodes.add(id(node))
+        elif isinstance(node, (ast.If, ast.Try)):
+            for sub in ast.walk(node):
+                if isinstance(sub, (ast.Import, ast.ImportFrom)):
+                    top_nodes.add(id(sub))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(a.name, id(node) in top_nodes) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append((node.module, id(node) in top_nodes))
+    return out
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_nothing_of_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for name, top in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path} imports {name}"
+        if top:
+            assert root not in LAZY_ONLY, f"{path} imports {name} at top level"
+            assert root in TOP_LEVEL_ALLOWED or root in sys.stdlib_module_names, (
+                f"{path} imports {name} at top level")
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from rga3_tpu_torch.models.sam2.config import tiny_sam2_config, unfused
+    from rga3_tpu_torch.models.unigr import UniGR, UniGRConfig
+    from rga3_tpu_torch.models.qwen25vl import tiny_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_device.resolve_device()
+    with pytest.raises(RuntimeError):
+        port_device.resolve_device("cuda")
+    cfg = UniGRConfig(qwen=tiny_config(1000), sam2=unfused(tiny_sam2_config(64)))
+    with pytest.raises(RuntimeError):
+        UniGR(cfg)
+    assert UniGR(cfg, device="cpu").device.type == "cpu"
+
+
+def test_cpu_tensors_launch_nothing():
+    f0, w0 = tatt.flash_attention.launches, tatt.window_attention.launches
+    s0, t0 = dict(tatt.flash_attention.shapes), dict(tatt.window_attention.shapes)
+    q = torch.randn(1, 64, 2, 16)
+    tatt.flash_attention(q, q, q, causal=True)
+    tatt.window_attention(q, q, q, 16)
+    assert (tatt.flash_attention.launches, tatt.window_attention.launches) == (f0, w0)
+    assert (tatt.flash_attention.shapes, tatt.window_attention.shapes) == (s0, t0)
+    assert _kernels._lib is None  # nothing was built or loaded
+
+
+def test_reset_launches_zeroes_counts_and_calls():
+    tatt.flash_attention.launches, tatt.window_attention.launches = 3, 4
+    tatt.flash_attention.shapes[("k",)] = [3, None]
+    tatt.window_attention.shapes[("k",)] = [4, None]
+    tatt.reset_launches()
+    assert (tatt.flash_attention.launches, tatt.window_attention.launches) == (0, 0)
+    assert tatt.flash_attention.shapes == {} and tatt.window_attention.shapes == {}
+
+
+def test_kernel_sources_are_listed_and_hashed():
+    for name in _kernels.SOURCES + _kernels.HEADERS:
+        assert os.path.exists(os.path.join(_kernels.CSRC, name))
+    assert len(_kernels._digest()) == 16
