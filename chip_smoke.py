@@ -7,23 +7,29 @@ Phases, each timed on its own line:
   1. device: the card, its power limit, TF32 off for the comparisons;
   2. build: the CUDA kernels from rga3_tpu_torch/csrc with nvcc;
   3. main path: `UniGRSegmentor.segment_video_multi` with UniGR at the release
-     width (Qwen2.5-VL-7B + SAM2 Hiera-L at 1024^2, unfused Hiera), random
-     bf16 weights made on the card from the seed, on an 8-frame 480x854
-     video with 2 expressions, then once more warm, then once more under
-     torch.profiler (device time by kernel, and the device's busy share of
-     the untraced warm call). The kernels' launch counts and the calls they
-     saw are reset just before the first call and read just after it; each
-     kernel must have been launched;
-  4. plain route: the same LLM forward and one SAM chunk with attention
-     routed to the plain versions, on the same weights;
-  5. kernels: each hand-written kernel against its plain PyTorch version at
-     every call the main path made (its shapes, strides, causal flag and
-     segment ids; bf16 inputs; per output row within ROW_TOL of the row's
-     max|plain|), with its time, its bound, the plain version's time and the
-     time of `torch.nn.functional.scaled_dot_product_attention` on the same
-     work (a yardstick only: the port never calls it);
-  6. reference: a small model on the card against the same model in f32 on
-     the CPU.
+     width (Qwen2.5-VL-7B + SAM2 Hiera-L at 1024^2, the default `Sam2Config()`
+     with every Hiera fusion on), random bf16 weights made on the card from
+     the seed, on an 8-frame 480x854 video with 2 expressions, then once more
+     warm, then once more under torch.profiler (device time by kernel, and
+     the device's busy share of the untraced warm call). The wrappers' launch
+     counts and the calls they saw are reset just before the first call and
+     read just after it; each kernel must have been launched, and the fused
+     Hiera wrappers as often as Hiera-L's blocks say;
+  4. plain route: the same LLM forward and one SAM chunk with attention and
+     the fused blocks routed to the plain versions, on the same weights; then
+     the earlier unfused Hiera path (`unfused(cfg)`) on the
+     same weights, its own launches counted, against the fused route, and
+     the two routes' SAM encode of one chunk timed in turns;
+  5. kernels: each hand-written kernel, and each fused-block wrapper built
+     from them, against its plain PyTorch version at every call the main
+     path made (shapes, strides, options, segment ids; bf16 inputs; per
+     output row within ROW_TOL of the row's max|plain|), with its time, its
+     bound, the plain version's time and the time of the same function
+     composed of PyTorch library calls (`scaled_dot_product_attention`,
+     `linear`, `layer_norm`, `gelu`, `max_pool2d`: a yardstick only, the port
+     never calls them);
+  6. reference: a small model with the fused Hiera routes (and the split
+     window block) on the card against the same model in f32 on the CPU.
 
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -150,36 +156,365 @@ def check_flash(key, segs, gen, reps):
                 bound=bound(flops, nbytes))
 
 
+def lib_window(q, k, v, window, q_window, scale):
+    """Window attention as one SDPA call over the windows."""
+    import torch.nn.functional as F
+
+    b, lk, h, d = k.shape
+    nw = lk // window
+
+    def win(t, n):
+        return t.reshape(b * nw, n, h, d).transpose(1, 2)
+
+    out = F.scaled_dot_product_attention(
+        win(q, q_window), win(k, window), win(v, window), scale=scale)
+    return out.transpose(1, 2).reshape(b, nw * q_window, h, d)
+
+
 def check_window(key, _extra, gen, reps):
     import torch
-    import torch.nn.functional as F
     from rga3_tpu_torch.ops.attention import window_attention, window_reference
 
-    shape, qstride, kstride, vstride, w, scale = key
+    shape, qstride, kstride, vstride, w, scale, kshape, qw = key
     b, l, h, d = shape
     q = randn_strided(shape, qstride, gen)
-    k = randn_strided(shape, kstride, gen)
-    v = randn_strided(shape, vstride, gen)
-    out = window_attention(q, k, v, w, scale=scale)
-    ref = window_reference(q, k, v, w, scale)
+    k = randn_strided(kshape, kstride, gen)
+    v = randn_strided(kshape, vstride, gen)
+    out = window_attention(q, k, v, w, q_window=qw, scale=scale)
+    ref = window_reference(q, k, v, w, scale, q_window=qw)
     if not torch.isfinite(out).all():
         raise AssertionError(f"window {shape}: non-finite output")
     rel, err = row_rel_err(out, ref, torch.ones(b, l, dtype=torch.bool, device="cuda"))
     if rel > ROW_TOL:
         raise AssertionError(f"window {shape}: row error {rel} > {ROW_TOL} of max|ref|")
-    ms = time_ms(lambda: window_attention(q, k, v, w, scale=scale), reps)
-    plain_ms = time_ms(lambda: window_reference(q, k, v, w, scale), max(2, reps // 4))
+    ms = time_ms(lambda: window_attention(q, k, v, w, q_window=qw, scale=scale), reps)
+    plain_ms = time_ms(lambda: window_reference(q, k, v, w, scale, q_window=qw),
+                       max(2, reps // 4))
+    lib_ms = time_ms(lambda: lib_window(q, k, v, w, qw, scale), reps)
+    flops = 4.0 * b * h * l * w * d
+    nbytes = 2.0 * (2 * b * l * h * d + 2 * b * kshape[1] * h * d)
+    return dict(desc=f"B={b} Lq={l} Lk={kshape[1]} H={h} D={d} window={w} q_window={qw}",
+                err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                bound=bound(flops, nbytes))
+
+
+# ---- the fused Hiera blocks (ops/fused_block.py) and their three kernels
+
+
+def rand(shape, gen, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, device="cuda", generator=gen) * scale).bfloat16()
+
+
+def linear_params(n, k, gen):
+    return rand((n, k), gen, k ** -0.5), rand((n,), gen, 0.1)
+
+
+def block_params(c_in, d, f, gen, transition=False):
+    p = {"ln1_g": 1 + rand((c_in,), gen, 0.1), "ln1_b": rand((c_in,), gen, 0.1),
+         "ln2_g": 1 + rand((d,), gen, 0.1), "ln2_b": rand((d,), gen, 0.1)}
+    p["wqkv"], p["bqkv"] = linear_params(3 * d, c_in, gen)
+    p["wproj"], p["bproj"] = linear_params(d, c_in, gen)
+    if transition:
+        p["wattn"], p["battn"] = linear_params(d, d, gen)
+    p["w1"], p["b1"] = linear_params(f, d, gen)
+    p["w2"], p["b2"] = linear_params(d, f, gen)
+    return p
+
+
+def lib_ln(x, g, b, eps):
+    import torch.nn.functional as F
+
+    return F.layer_norm(x, (x.shape[-1],), g, b, eps)
+
+
+def lib_pool(t, ws):
+    import torch.nn.functional as F
+
+    b, l, c = t.shape
+    y = F.max_pool2d(t.reshape(-1, ws, ws, c).permute(0, 3, 1, 2), 2)
+    return y.permute(0, 2, 3, 1).reshape(b, l // 4, c)
+
+
+def lib_mlp(y, p, eps, tanh):
+    import torch.nn.functional as F
+
+    h = F.linear(lib_ln(y, p["ln2_g"], p["ln2_b"], eps), p["w1"], p["b1"])
+    h = F.gelu(h, approximate="tanh" if tanh else "none")
+    return y + F.linear(h, p["w2"], p["b2"])
+
+
+def lib_block(x, p, heads, window, eps, scale, tanh):
+    """A windowed (window > 0) or global block of library calls."""
+    import torch.nn.functional as F
+
+    b, l, d = x.shape
+    qkv = F.linear(lib_ln(x, p["ln1_g"], p["ln1_b"], eps), p["wqkv"], p["bqkv"])
+    q, k, v = qkv.view(b, l, 3, heads, -1).unbind(2)
+    if window:
+        attn = lib_window(q, k, v, window, window, scale)
+    else:
+        attn = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale
+        ).transpose(1, 2)
+    y = x + F.linear(attn.reshape(b, l, d), p["wproj"], p["bproj"])
+    return lib_mlp(y, p, eps, tanh)
+
+
+def lib_transition(x, p, heads, ws, eps, scale, tanh):
+    import torch.nn.functional as F
+
+    b, l, _ = x.shape
+    c = p["wproj"].shape[0]
+    ln = lib_ln(x, p["ln1_g"], p["ln1_b"], eps)
+    shortcut = lib_pool(F.linear(ln, p["wproj"], p["bproj"]), ws)
+    qkv = F.linear(ln, p["wqkv"], p["bqkv"])
+    q = lib_pool(qkv[:, :, :c], ws).view(b, l // 4, heads, -1)
+    _, k, v = qkv.view(b, l, 3, heads, -1).unbind(2)
+    attn = lib_window(q, k, v, ws * ws, ws * ws // 4, scale).reshape(b, l // 4, c)
+    return lib_mlp(shortcut + F.linear(attn, p["wattn"], p["battn"]), p, eps, tanh)
+
+
+def measure(desc, run, plain, lib, flops, nbytes, reps):
+    """Check `run()` against `plain()` per output row, then time all three."""
+    import torch
+
+    outs, refs = run(), plain()
+    if not isinstance(outs, tuple):
+        outs, refs = (outs,), (refs,)
+    rel = err = 0.0
+    for out, ref in zip(outs, refs):
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{desc}: output {tuple(out.shape)} non-finite or "
+                                 f"not {tuple(ref.shape)}")
+        r, e = row_rel_err(out, ref, torch.ones(out.shape[:-1], dtype=torch.bool,
+                                                device="cuda"))
+        rel, err = max(rel, r), max(err, e)
+    if rel > ROW_TOL:
+        raise AssertionError(f"{desc}: row error {rel} > {ROW_TOL} of max|ref|")
+    return dict(desc=desc, err=err, rel=rel, ms=time_ms(run, reps),
+                plain_ms=time_ms(plain, max(2, reps // 4)),
+                lib_ms=None if lib is None else time_ms(lib, reps),
+                bound=bound(flops, nbytes))
+
+
+def check_gemm(key, _extra, gen, reps):
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    m, n, k, has_ln, eps, epi = key
+    a = rand((m, k), gen)
+    w, bias = linear_params(n, k, gen)
+    ln = (1 + rand((k,), gen, 0.1), rand((k,), gen, 0.1), eps) if has_ln else None
+    res = rand((m, n), gen) if epi.startswith("res") else None
+    kw = dict(ln=ln, epilogue=epi, residual=res)
 
     def lib():
-        def win(t):
-            return t.reshape(b * (l // w), w, h, d).transpose(1, 2)
-        return F.scaled_dot_product_attention(win(q), win(k), win(v), scale=scale)
+        h = F.linear(lib_ln(a, *ln) if ln else a, w, bias)
+        if epi.startswith("gelu"):
+            return F.gelu(h, approximate="tanh" if epi == "gelu_tanh" else "none")
+        return h if res is None else res + h
 
-    lib_ms = time_ms(lib, reps)
-    flops = 4.0 * b * h * l * w * d
-    nbytes = 2.0 * 4 * b * l * h * d
-    return dict(desc=f"B={b} L={l} H={h} D={d} window={w}", err=err, rel=rel, ms=ms,
-                plain_ms=plain_ms, lib_ms=lib_ms, bound=bound(flops, nbytes))
+    nbytes = 2.0 * (m * k + n * k + m * n * (2 if res is not None else 1))
+    r = measure(f"M={m} N={n} K={k} ln={has_ln} epilogue={epi}",
+                lambda: fb.gemm(a, w, bias, **kw),
+                lambda: fb.gemm_reference(a, w, bias, **kw), lib,
+                2.0 * m * n * k, nbytes, reps)
+    if ln:
+        # the same function with the LayerNorm as its own pass: the layer_norm
+        # kernel, then the GEMM without the prologue (a design yardstick)
+        split = dict(kw, ln=None)
+        r["desc"] += (", layer_norm kernel + gemm without prologue ms %.4f" % time_ms(
+            lambda: fb.gemm(fb.layer_norm(a, *ln), w, bias, **split), reps))
+    return r
+
+
+def check_layer_norm(key, _extra, gen, reps):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rows, d, eps = key
+    x = rand((rows, d), gen)
+    g, b = 1 + rand((d,), gen, 0.1), rand((d,), gen, 0.1)
+    return measure(f"rows={rows} D={d}", lambda: fb.layer_norm(x, g, b, eps),
+                   lambda: fb.layer_norm_reference(x, g, b, eps),
+                   lambda: lib_ln(x, g, b, eps), 8.0 * rows * d, 4.0 * rows * d, reps)
+
+
+def check_pool(key, _extra, gen, reps):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, stride, ws = key
+    b, l, c = shape
+    x = rand((b, l, stride[1]), gen)[:, :, :c]
+    return measure(f"B={b} L={l} C={c} row stride={stride[1]} ws={ws}",
+                   lambda: fb.window_pool2x2(x, ws),
+                   lambda: fb.window_pool2x2_reference(x, ws),
+                   lambda: lib_pool(x, ws), 3.0 * b * l * c / 4, 2.0 * b * l * c * 5 / 4, reps)
+
+
+def check_ln_qkv(key, _extra, gen, reps):
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, n, eps = key
+    b, l, d = shape
+    x = rand(shape, gen)
+    g, bb = 1 + rand((d,), gen, 0.1), rand((d,), gen, 0.1)
+    w, bias = linear_params(n, d, gen)
+    t = b * l
+    return measure(f"B={b} L={l} D={d} N={n}",
+                   lambda: fb.ln_qkv(x, g, bb, w, bias, eps=eps),
+                   lambda: fb.ln_qkv_reference(x, g, bb, w, bias, eps=eps),
+                   lambda: F.linear(lib_ln(x, g, bb, eps), w, bias),
+                   2.0 * t * d * n, 2.0 * (t * d + n * d + t * n), reps)
+
+
+def check_proj_mlp(key, _extra, gen, reps):
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, f, eps, tanh = key
+    b, l, d = shape
+    attn, x = rand(shape, gen), rand(shape, gen)
+    p = block_params(d, d, f, gen)
+    args = (attn, x, p["wproj"], p["bproj"], p["ln2_g"], p["ln2_b"], p["w1"], p["b1"],
+            p["w2"], p["b2"])
+    t = b * l
+    return measure(f"B={b} L={l} D={d} F={f}",
+                   lambda: fb.proj_mlp(*args, eps=eps, gelu_tanh=tanh),
+                   lambda: fb.proj_mlp_reference(*args, eps=eps, gelu_tanh=tanh),
+                   lambda: lib_mlp(x + F.linear(attn, p["wproj"], p["bproj"]), p, eps, tanh),
+                   2.0 * t * (d * d + 2 * d * f), 2.0 * (3 * t * d + d * d + 2 * d * f), reps)
+
+
+def check_proj_ln(key, _extra, gen, reps):
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, eps = key
+    b, l, d = shape
+    attn, x = rand(shape, gen), rand(shape, gen)
+    p = block_params(d, d, 4 * d, gen)
+    args = (attn, x, p["wproj"], p["bproj"], p["ln2_g"], p["ln2_b"])
+
+    def lib():
+        y = x + F.linear(attn, p["wproj"], p["bproj"])
+        return y, lib_ln(y, p["ln2_g"], p["ln2_b"], eps)
+
+    t = b * l
+    return measure(f"B={b} L={l} D={d}", lambda: fb.proj_ln(*args, eps=eps),
+                   lambda: fb.proj_ln_reference(*args, eps=eps), lib,
+                   2.0 * t * d * d, 2.0 * (4 * t * d + d * d), reps)
+
+
+def check_mlp_blocked(key, _extra, gen, reps):
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, f, tanh = key
+    b, l, d = shape
+    ln2y, y = rand(shape, gen), rand(shape, gen)
+    p = block_params(d, d, f, gen)
+    args = (ln2y, y, p["w1"], p["b1"], p["w2"], p["b2"])
+
+    def lib():
+        h = F.gelu(F.linear(ln2y, p["w1"], p["b1"]), approximate="tanh" if tanh else "none")
+        return y + F.linear(h, p["w2"], p["b2"])
+
+    t = b * l
+    return measure(f"B={b} L={l} D={d} F={f}", lambda: fb.mlp_blocked(*args, gelu_tanh=tanh),
+                   lambda: fb.mlp_blocked_reference(*args, gelu_tanh=tanh), lib,
+                   4.0 * t * d * f, 2.0 * (3 * t * d + 2 * d * f), reps)
+
+
+def _block_cost(t, d, f, attn_flops):
+    flops = 2.0 * t * (4 * d * d + 2 * d * f) + attn_flops
+    return flops, 2.0 * (2 * t * d + 4 * d * d + 2 * d * f)
+
+
+def check_window_block(key, _extra, gen, reps, split=False):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, f, heads, window, eps, scale, tanh = key
+    b, l, d = shape
+    x = rand(shape, gen)
+    p = block_params(d, d, f, gen)
+    kw = dict(num_heads=heads, window=window, eps=eps, scale=scale, gelu_tanh=tanh)
+    wrapper = fb.fused_window_block_split if split else fb.fused_window_block
+    return measure(f"B={b} L={l} D={d} F={f} H={heads} window={window}",
+                   lambda: wrapper(x, p, **kw), lambda: fb.reference_block(x, p, split=split, **kw),
+                   lambda: lib_block(x, p, heads, window, eps, scale, tanh),
+                   *_block_cost(b * l, d, f, 4.0 * b * l * window * d), reps)
+
+
+def check_split_block(key, extra, gen, reps):
+    return check_window_block(key, extra, gen, reps, split=True)
+
+
+def check_global_block(key, _extra, gen, reps):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, f, heads, eps, scale, tanh = key
+    b, l, d = shape
+    x = rand(shape, gen)
+    p = block_params(d, d, f, gen)
+    kw = dict(num_heads=heads, eps=eps, scale=scale, gelu_tanh=tanh)
+    return measure(f"B={b} L={l} D={d} F={f} H={heads}",
+                   lambda: fb.fused_global_block(x, p, **kw),
+                   lambda: fb.reference_global_block(x, p, **kw),
+                   lambda: lib_block(x, p, heads, 0, eps, scale, tanh),
+                   *_block_cost(b * l, d, f, 4.0 * b * l * l * d), reps)
+
+
+def check_transition(key, _extra, gen, reps):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, c, f, heads, ws, eps, scale, tanh = key
+    b, l, c_in = shape
+    x = rand(shape, gen)
+    p = block_params(c_in, c, f, gen, transition=True)
+    kw = dict(num_heads=heads, ws=ws, eps=eps, scale=scale, gelu_tanh=tanh)
+    t_in, t_out = b * l, b * l // 4
+    flops = (2.0 * t_in * c_in * 4 * c + 4.0 * t_out * ws * ws * c
+             + 2.0 * t_out * (c * c + 2 * c * f))
+    nbytes = 2.0 * (t_in * c_in + t_out * c + 4 * c_in * c + c * c + 2 * c * f)
+    return measure(f"B={b} L={l} C_in={c_in} C_out={c} F={f} H={heads} ws={ws}",
+                   lambda: fb.fused_transition_block(x, p, **kw),
+                   lambda: fb.reference_transition(x, p, **kw),
+                   lambda: lib_transition(x, p, heads, ws, eps, scale, tanh),
+                   flops, nbytes, reps)
+
+
+# name, check, source, the TPU kernel it replaces
+FUSED = "rga3_tpu/ops/fused_block.py"
+KERNELS = (
+    ("flash_attention", check_flash, "rga3_tpu_torch/csrc/flash_attention.cu",
+     "rga3_tpu/ops/attention.py:75"),
+    ("window_attention", check_window, "rga3_tpu_torch/csrc/window_attention.cu",
+     "rga3_tpu/ops/attention.py:228"),
+    ("gemm", check_gemm, "rga3_tpu_torch/csrc/gemm.cu", f"{FUSED}:312"),
+    ("layer_norm", check_layer_norm, "rga3_tpu_torch/csrc/row_ops.cu", f"{FUSED}:543"),
+    ("window_pool2x2", check_pool, "rga3_tpu_torch/csrc/row_ops.cu", f"{FUSED}:907"),
+    ("ln_qkv", check_ln_qkv, "rga3_tpu_torch/ops/fused_block.py", f"{FUSED}:312"),
+    ("proj_mlp", check_proj_mlp, "rga3_tpu_torch/ops/fused_block.py", f"{FUSED}:324"),
+    ("proj_ln", check_proj_ln, "rga3_tpu_torch/ops/fused_block.py", f"{FUSED}:543"),
+    ("mlp_blocked", check_mlp_blocked, "rga3_tpu_torch/ops/fused_block.py", f"{FUSED}:583"),
+    ("fused_window_block", check_window_block, "rga3_tpu_torch/ops/fused_block.py",
+     f"{FUSED}:105"),
+    ("fused_global_block", check_global_block, "rga3_tpu_torch/ops/fused_block.py",
+     f"{FUSED}:481"),
+    ("fused_window_block_split", check_split_block, "rga3_tpu_torch/ops/fused_block.py",
+     f"{FUSED}:694"),
+    ("fused_transition_block", check_transition, "rga3_tpu_torch/ops/fused_block.py",
+     f"{FUSED}:917"),
+)
+# launches of the fused block wrappers in one 8-frame call: Hiera-L's
+# windowed blocks at widths <= 576 (stages 1-3: 2 + 5 + 32), its global
+# blocks (23, 33, 43), its stage-4 windowed blocks and its q-pool blocks
+# (2, 8, 44)
+HIERA_L_LAUNCHES = {"fused_window_block": 39, "fused_global_block": 3,
+                    "fused_window_block_split": 3, "fused_transition_block": 3}
 
 
 # --------------------------------------------------------------------------
@@ -194,16 +529,22 @@ def small_reference(seed: int) -> None:
     from rga3_tpu_torch.data.processor import QwenVLProcessor
     from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor
     from rga3_tpu_torch.models.qwen25vl import tiny_config
-    from rga3_tpu_torch.models.sam2.config import tiny_sam2_config, unfused
+    from rga3_tpu_torch.models.sam2.config import tiny_sam2_config
     from rga3_tpu_torch.models.unigr import UniGR, UniGRConfig
+    from rga3_tpu_torch.ops import fused_block as fb
     from rga3_tpu_torch.ops.attention import flash_attention, window_attention
 
     proc = QwenVLProcessor.from_pretrained(
         "dummy", min_pixels=4 * 28 * 28, max_pixels=64 * 28 * 28,
         video_max_pixels=64 * 28 * 28)
-    sam = unfused(tiny_sam2_config(128))
-    # windows of 16 tokens everywhere: the kernel's smallest window
-    sam = sam.replace(hiera=sam.hiera.replace(window_spec=(4, 4, 4, 4)))
+    sam = tiny_sam2_config(128)
+    # the fused routes: windows of 16 tokens everywhere (the window kernel's
+    # smallest; pooled query windows of 4), and stage 3 (width 64) through
+    # the split window block
+    sam = sam.replace(hiera=sam.hiera.replace(window_spec=(4, 4, 4, 4),
+                                              fused_block_max_dim=32))
+    counted = (flash_attention, window_attention, fb.fused_window_block,
+               fb.fused_window_block_split, fb.fused_transition_block)
     cfg = UniGRConfig(qwen=tiny_config(152_000), sam2=sam,
                       seg=SegHeadConfig(out_dim=sam.d_model, seg_token_id=proc.seg_token_id))
     cpu = UniGR(cfg, device="cpu")
@@ -215,14 +556,14 @@ def small_reference(seed: int) -> None:
     res = {}
     for name, model in (("cpu_f32", cpu), ("gpu_bf16", gpu)):
         seg = UniGRSegmentor(model, proc, num_frames_mllm=2, sam_chunk=2)
-        f0, w0 = flash_attention.launches, window_attention.launches
+        before = [f.launches for f in counted]
         emb, has = seg._seg_embedding(frames, "the thing")
         logits = seg.decode_logits(seg.encode_frames(frames), emb)
         res[name] = (emb.float().cpu(), logits.float().cpu(), has,
-                     flash_attention.launches - f0, window_attention.launches - w0)
-    (ec, lc, hc, _, _), (eg, lg, hg, fl, wl) = res["cpu_f32"], res["gpu_bf16"]
-    if not (hc and hg) or fl == 0 or wl == 0:
-        raise AssertionError(f"small reference: has_seg {hc}/{hg}, launches {fl}/{wl}")
+                     [f.launches - n for f, n in zip(counted, before)])
+    (ec, lc, hc, _), (eg, lg, hg, launched) = res["cpu_f32"], res["gpu_bf16"]
+    if not (hc and hg) or min(launched) == 0:
+        raise AssertionError(f"small reference: has_seg {hc}/{hg}, launches {launched}")
     emb_rel = ((eg - ec).norm() / ec.norm()).item()
     logit_rel = ((lg - lc).abs().max() / lc.abs().max()).item()
     agree = ((lg > 0) == (lc > 0)).float().mean().item()
@@ -246,13 +587,19 @@ def device_breakdown(run, top: int = 20) -> float:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    evs = [e for e in averages if e.device_type == DeviceType.CUDA]
     evs.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
     log(f"profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall (traced); "
         f"{len(evs)} kernel names; top {top}:")
     for e in evs[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    log(f"profile: host ops by self CPU time (traced, so inflated), top {top // 2}:")
+    for e in host[:top // 2]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
     return busy_ms
 
 
@@ -282,8 +629,10 @@ def main() -> int:
     from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor
     from rga3_tpu_torch.models.qwen25vl import QWEN25_VL_7B
     from rga3_tpu_torch.models.sam2.config import Sam2Config, unfused
+    from rga3_tpu_torch.models.sam2.model import Sam2Model
     from rga3_tpu_torch.models.unigr import UniGR, UniGRConfig
     from rga3_tpu_torch.ops import _kernels
+    from rga3_tpu_torch.ops import fused_block as fb
     from rga3_tpu_torch.ops.attention import (
         flash_attention, reset_launches, set_plain_attention, window_attention,
     )
@@ -323,7 +672,7 @@ def main() -> int:
     expressions = ["the person on the left", "the red car moving away"]
     proc = QwenVLProcessor.from_pretrained("dummy")
     cfg = UniGRConfig(
-        qwen=QWEN25_VL_7B, sam2=unfused(Sam2Config()),
+        qwen=QWEN25_VL_7B, sam2=Sam2Config(),
         seg=SegHeadConfig(out_dim=256, seg_token_id=proc.seg_token_id),
     )
     chunk = 8
@@ -332,7 +681,7 @@ def main() -> int:
     model.eval()
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
-    log(f"model: UniGR Qwen2.5-VL-7B + SAM2 Hiera-L (unfused), {n_params / 1e9:.3f} B "
+    log(f"model: UniGR Qwen2.5-VL-7B + SAM2 Hiera-L (Sam2Config()), {n_params / 1e9:.3f} B "
         f"params in bf16, built on the card in {time.perf_counter() - t0:.2f} s")
     seg = UniGRSegmentor(model, proc, num_frames_mllm=8, sam_chunk=chunk)
     torch.cuda.reset_peak_memory_stats()
@@ -342,6 +691,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     wrappers = {"flash_attention": flash_attention, "window_attention": window_attention}
+    wrappers.update((name, getattr(fb, name)) for name, *_ in KERNELS[2:])
     launches = {k: f.launches for k, f in wrappers.items()}
     # a snapshot: the calls after this one add to the wrappers' records
     calls = {k: {key: tuple(rec) for key, rec in f.shapes.items()}
@@ -357,6 +707,9 @@ def main() -> int:
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
+    for k, n in HIERA_L_LAUNCHES.items():
+        if launches[k] != n:
+            raise AssertionError(f"{k}: {launches[k]} launches, Hiera-L has {n} such blocks")
     # the same call again, warm (kernels loaded, allocator and cuBLAS set up)
     for k in seg.phase_seconds:
         seg.phase_seconds[k] = 0.0
@@ -393,7 +746,42 @@ def main() -> int:
         f"{logit_rel:.3e}, mask agreement {agree:.5f}")
     if not (has_k and has_p and emb_rel < 0.1 and agree > 0.95):
         raise AssertionError("the kernel route disagrees with the plain route")
-    del model, seg, emb_k, emb_p, logits_k, logits_p
+    # the earlier (unfused) Hiera path on the same weights and [SEG] embedding
+    fused_sam = model.grounding_encoder
+    unfused_sam = Sam2Model(unfused(cfg.sam2), device="cuda", dtype=torch.bfloat16)
+    unfused_sam.load_state_dict(fused_sam.state_dict())
+    unfused_sam.eval()
+    model.grounding_encoder = unfused_sam
+    reset_launches()
+    logits_u = seg.decode_logits(seg.encode_frames(frames[:chunk]), emb_k)
+    torch.cuda.synchronize()
+    unfused_launches = {k: f.launches for k, f in wrappers.items() if f.launches}
+
+    def encode_s(sam):
+        model.grounding_encoder = sam
+        t = time.perf_counter()
+        seg.encode_frames(frames[:chunk])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # SAM encode of one 8-frame chunk, both routes warm, in turns
+    turns = [("fused", fused_sam), ("unfused", unfused_sam)]
+    turns += turns[::-1]
+    times = [(name, encode_s(sam)) for name, sam in turns]
+    log("SAM encode of one chunk, warm, in turns (s): "
+        + ", ".join(f"{name} {t:.4f}" for name, t in times))
+    model.grounding_encoder = fused_sam
+    del unfused_sam
+    agree_u = ((logits_k > 0) == (logits_u > 0)).float().mean().item()
+    logit_rel_u = ((logits_k - logits_u).abs().max() / logits_u.abs().max()).item()
+    log(f"unfused Hiera path, same weights and [SEG] embedding: "
+        f"launches {unfused_launches}; mask logits max err / max|logit| "
+        f"{logit_rel_u:.3e}, mask agreement with the fused route {agree_u:.5f}")
+    if not (torch.isfinite(logits_u).all() and agree_u > 0.95
+            and unfused_launches.get("window_attention", 0) > 0
+            and not any(k.startswith("fused_") for k in unfused_launches)):
+        raise AssertionError("the unfused Hiera path disagrees with the fused route")
+    del model, seg, emb_k, emb_p, logits_k, logits_p, logits_u
     torch.cuda.empty_cache()
     log(f"phase plain_route: {time.perf_counter() - t0:.2f} s")
 
@@ -402,12 +790,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(seed)
     kernels = []
-    for kname, check, src, replaces in (
-        ("flash_attention", check_flash,
-         "rga3_tpu_torch/csrc/flash_attention.cu", "rga3_tpu/ops/attention.py:75"),
-        ("window_attention", check_window,
-         "rga3_tpu_torch/csrc/window_attention.cu", "rga3_tpu/ops/attention.py:228"),
-    ):
+    for kname, check, src, replaces in KERNELS:
         tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
         for key, (n, extra) in calls[kname].items():
             r = check(key, extra, gen, REPS)

@@ -2,12 +2,12 @@
 `rga3_tpu/models/sam2/config.py`, field for field, so that a config saved by
 either package loads in the other.
 
-The port runs the unfused Hiera path only: the per-block Pallas fusions of
-the JAX package (`use_fused_block`, `use_split_fused_block`,
-`use_fused_transition`) have no kernel here yet, and a model built with one
-of them switched on raises `NotImplementedError` instead of silently running
-another path. `unfused(cfg)` turns them off; the parameter tree is the same
-either way.
+The Hiera fusion switches (`use_fused_block`, `use_split_fused_block`,
+`use_fused_transition`) choose the same routes as in the JAX package, each
+through the port's CUDA kernels (`ops/fused_block.py`); `unfused(cfg)` turns
+them off, and the parameter tree is the same either way. The TPU block sizes
+(`fused_block_q_small`, `fused_block_q_large`) are kept for file
+compatibility and not read.
 """
 from __future__ import annotations
 
@@ -169,7 +169,7 @@ def tiny_sam2_config(image_size: int = 128) -> Sam2Config:
 
 
 def unfused(cfg: Sam2Config) -> Sam2Config:
-    """`cfg` with the Hiera fusions the port has no kernels for turned off."""
+    """`cfg` with the Hiera fusions turned off: the unfused block path."""
     return cfg.replace(hiera=cfg.hiera.replace(
         use_fused_block=False, use_fused_transition=False,
     ))

@@ -1,14 +1,19 @@
 """Hiera hierarchical windowed ViT trunk (NHWC), counterpart of
-`rga3_tpu/models/sam2/hiera.py`, on its unfused path.
+`rga3_tpu/models/sam2/hiera.py`.
 
-Windowed, non-pooling blocks run `window_attention` over window-major
-tokens; global and q-pool blocks run `attend` (the flash kernel from 1024
-query tokens). The block dispatch mirrors the JAX module: where the JAX
-package would take one of its fused Pallas paths, the port raises
-`NotImplementedError` (those kernels are not ported yet).
+The block dispatch mirrors the JAX module's. With the fused switches on (the
+default config) a windowed block of width <= `fused_block_max_dim` runs
+`fused_window_block`, a wider one `fused_window_block_split`, a global block
+`fused_global_block` and a q-pool stage-entry block `fused_transition_block`
+(`ops/fused_block.py`, the ports of the Pallas fused-block kernels). With
+them off, the unfused path runs: windowed blocks through `window_attention`
+over window-major tokens, global and q-pool blocks through `attend` (the
+flash kernel from 1024 query tokens). Both routes read the same submodules,
+so one state_dict loads into either.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Tuple
 
@@ -16,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import fused_block as fb
 from ...ops.attention import window_attention, window_reference
 from ...ops.resize import resize_bicubic_torch
 from .config import HieraConfig
@@ -70,29 +76,68 @@ class MultiScaleBlock(nn.Module):
         self.mlp_layers_0 = nn.Linear(dim_out, hidden, **factory)
         self.mlp_layers_1 = nn.Linear(hidden, dim_out, **factory)
 
-    def _check_unfused(self, x: torch.Tensor) -> None:
-        """Raise where the JAX module would take a fused Pallas path."""
-        cfg, ws = self.cfg, self.window_size
+    def _block_params(self) -> dict:
+        """The fused kernels' params dict, from the unfused path's modules."""
+        p = {
+            "ln1_g": self.norm1.weight, "ln1_b": self.norm1.bias,
+            "wqkv": self.attn_qkv.weight, "bqkv": self.attn_qkv.bias,
+            "ln2_g": self.norm2.weight, "ln2_b": self.norm2.bias,
+            "w1": self.mlp_layers_0.weight, "b1": self.mlp_layers_0.bias,
+            "w2": self.mlp_layers_1.weight, "b2": self.mlp_layers_1.bias,
+        }
+        if self.dim != self.dim_out:  # the transition: proj is the shortcut
+            p.update(wproj=self.proj.weight, bproj=self.proj.bias,
+                     wattn=self.attn_proj.weight, battn=self.attn_proj.bias)
+        else:
+            p.update(wproj=self.attn_proj.weight, bproj=self.attn_proj.bias)
+        return p
+
+    def _fused(self, x: torch.Tensor, split: bool = False) -> torch.Tensor:
+        ws, d = self.window_size, self.dim_out
+        b, h, w = x.shape[:3]
+        attn_in, pad_hw = window_partition(x, ws)
+        tokens = attn_in.reshape(b, -1, d).contiguous()
+        if self.plain_attention:
+            fn = functools.partial(fb.reference_block, split=split)
+        else:
+            fn = fb.fused_window_block_split if split else fb.fused_window_block
+        out = fn(tokens, self._block_params(), num_heads=self.num_heads,
+                 window=ws * ws, gelu_tanh=self.cfg.gelu_tanh)
+        out = out.reshape(-1, ws, ws, d)
+        return window_unpartition(out, ws, pad_hw, (h, w))
+
+    def _fused_global(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, d = x.shape
+        fn = fb.reference_global_block if self.plain_attention else fb.fused_global_block
+        out = fn(x.reshape(b, h * w, d).contiguous(), self._block_params(),
+                 num_heads=self.num_heads, gelu_tanh=self.cfg.gelu_tanh)
+        return out.reshape(b, h, w, d)
+
+    def _fused_transition(self, x: torch.Tensor) -> torch.Tensor:
+        ws = self.window_size
+        b, h, w = x.shape[:3]
+        attn_in, pad_hw = window_partition(x, ws)
+        tokens = attn_in.reshape(b, -1, self.dim).contiguous()
+        fn = fb.reference_transition if self.plain_attention else fb.fused_transition_block
+        out = fn(tokens, self._block_params(), num_heads=self.num_heads, ws=ws,
+                 gelu_tanh=self.cfg.gelu_tanh)
+        ws_out = ws // 2
+        out = out.reshape(-1, ws_out, ws_out, self.dim_out)
+        return window_unpartition(
+            out, ws_out, (pad_hw[0] // 2, pad_hw[1] // 2), (h // 2, w // 2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, ws, heads = self.cfg, self.window_size, self.num_heads
         if not self.do_q_pool and self.dim == self.dim_out and cfg.use_fused_block:
-            if self.dim_out <= cfg.fused_block_max_dim or (
-                ws > 0 and cfg.use_split_fused_block
-            ):
-                raise NotImplementedError(
-                    "Hiera fused block path has no CUDA kernel yet; build the "
-                    "model from sam2.config.unfused(cfg)"
-                )
+            if self.dim_out <= cfg.fused_block_max_dim:
+                return self._fused(x) if ws > 0 else self._fused_global(x)
+            if ws > 0 and cfg.use_split_fused_block:
+                return self._fused(x, split=True)
         if (self.do_q_pool and self.dim != self.dim_out and ws > 0
                 and cfg.use_fused_block and cfg.use_fused_transition
                 and tuple(cfg.q_stride) == (2, 2)
                 and x.shape[1] % ws == 0 and x.shape[2] % ws == 0):
-            raise NotImplementedError(
-                "Hiera fused transition path has no CUDA kernel yet; build "
-                "the model from sam2.config.unfused(cfg)"
-            )
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self._check_unfused(x)
-        cfg, ws, heads = self.cfg, self.window_size, self.num_heads
+            return self._fused_transition(x)
         shortcut = x
         normed = self.norm1(x)
         if self.dim != self.dim_out:

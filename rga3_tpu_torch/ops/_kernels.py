@@ -24,7 +24,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("flash_attention.cu", "window_attention.cu")
+SOURCES = ("flash_attention.cu", "window_attention.cu", "gemm.cu", "row_ops.cu")
 HEADERS = ("attention_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -92,9 +92,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     )
     lib.rga3_flash_attention_bf16.restype = i
     lib.rga3_window_attention_bf16.argtypes = (
-        [p] * 4 + [i] * 5 + [i64] * 12 + [f, p]
+        [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
     )
     lib.rga3_window_attention_bf16.restype = i
+    lib.rga3_gemm_bf16.argtypes = (
+        [p, i64, p, i64, p, p, p, f, p, i64, p, i64, i, i, i, i, p]
+    )
+    lib.rga3_gemm_bf16.restype = i
+    lib.rga3_layer_norm_bf16.argtypes = [p, i64, p, p, p, i64, i, i, f, p]
+    lib.rga3_layer_norm_bf16.restype = i
+    lib.rga3_window_pool2x2_bf16.argtypes = [p, i64, p, i64, i64, i, i, p]
+    lib.rga3_window_pool2x2_bf16.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -75,17 +75,19 @@ def mha_reference(
 
 def window_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
-    scale: float,
+    scale: float, q_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Window-local attention: each `window`-token group attends within
-    itself (the same function as block-diagonal masking)."""
-    b, l, h, d = q.shape
-    nw = l // window
+    """Window-local attention: each `window`-token group of keys is attended
+    by its group of `q_window` queries (default `window`: the same tokens,
+    the function of block-diagonal masking)."""
+    qw = window if q_window is None else q_window
+    b, lk, h, d = k.shape
+    nw = lk // window
     out = mha_reference(
-        q.reshape(b * nw, window, h, d), k.reshape(b * nw, window, h, d),
+        q.reshape(b * nw, qw, h, d), k.reshape(b * nw, window, h, d),
         v.reshape(b * nw, window, h, d), scale=scale,
     )
-    return out.reshape(b, l, h, d)
+    return out.reshape(b, nw * qw, h, d)
 
 
 def set_plain_attention(model: torch.nn.Module, plain: bool) -> None:
@@ -124,9 +126,22 @@ def _record(wrapper, key, extra=None) -> None:
         seen[0] += 1
 
 
+_WRAPPERS = []
+
+
+def register(*wrappers) -> None:
+    """Give kernel wrappers their `launches` and `shapes` records and put
+    them under `reset_launches()`."""
+    for wrapper in wrappers:
+        wrapper.launches = 0
+        wrapper.shapes = {}
+        _WRAPPERS.append(wrapper)
+
+
 def reset_launches() -> None:
-    """Zero both wrappers' launch counts and forget the calls they saw."""
-    for wrapper in (flash_attention, window_attention):
+    """Zero every registered wrapper's launch count and forget the calls it
+    saw (these two, and those of `ops.fused_block` once it is imported)."""
+    for wrapper in _WRAPPERS:
         wrapper.launches = 0
         wrapper.shapes = {}
 
@@ -198,41 +213,51 @@ def window_attention(
     v: torch.Tensor,
     window: int,
     *,
+    q_window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Block-diagonal windowed attention over (B, L, H, D) with tokens laid
     out window-major (every consecutive `window` tokens form one window).
+    With `q_window` (the q-pool transition block's 2x2-pooled queries,
+    `window / 4`), q is (B, L / window * q_window, H, D) and its w-th group
+    of `q_window` rows attends to the w-th window of keys.
 
     On a CUDA tensor it launches the hand-written kernel (bf16; the window
-    a multiple of 16 that divides 64 or is a multiple of 64); on a CPU
-    tensor it computes `window_reference`."""
-    b, l, h, d = q.shape
+    a multiple of 16, the query window dividing 64 or a multiple of 64); on
+    a CPU tensor it computes `window_reference`."""
+    qw = window if q_window is None else q_window
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if l % window != 0:
-        raise ValueError(f"window_attention: L={l} not a multiple of {window}")
+    if lk % window != 0 or lq != lk // window * qw:
+        raise ValueError(
+            f"window_attention: Lk={lk} in windows of {window} does not give "
+            f"Lq={lq} in windows of {qw}")
     if q.device.type == "cpu":
-        return window_reference(q, k, v, window, scale)
+        return window_reference(q, k, v, window, scale, q_window=qw)
     if q.device.type != "cuda":
         raise RuntimeError(f"window_attention: no kernel for {q.device}")
     _check_cuda_inputs("window_attention", q, k, v)
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("window_attention: q, k and v must share a shape")
-    if window % 16 or (64 % window if window < 64 else window % 64):
-        raise ValueError(f"window_attention: unsupported window {window}")
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]
+            or qw not in (window, window // 4)):
+        raise ValueError("window_attention: mismatched q/k/v shapes")
+    if window % 16 or (64 % qw if qw < 64 else qw % 64):
+        raise ValueError(f"window_attention: unsupported window {window}/{qw}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lib = _kernels.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rga3_window_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, l, h, d, window,
+        b, lk, h, d, window, qw,
         *_ptr_strides(q), *_ptr_strides(k), *_ptr_strides(v),
         *_ptr_strides(out), float(scale), stream,
     )
     _kernels.check(err, "window_attention")
-    key = (tuple(q.shape), q.stride(), k.stride(), v.stride(), int(window), float(scale))
+    key = (tuple(q.shape), q.stride(), k.stride(), v.stride(), int(window), float(scale),
+           tuple(k.shape), int(qw))
     _record(window_attention, key)
     return out
 
 
-reset_launches()
+register(flash_attention, window_attention)

@@ -96,6 +96,8 @@ def test_reset_launches_zeroes_counts_and_calls():
 
 
 def test_kernel_sources_are_listed_and_hashed():
+    assert {"flash_attention.cu", "window_attention.cu", "gemm.cu",
+            "row_ops.cu"} <= set(_kernels.SOURCES)
     for name in _kernels.SOURCES + _kernels.HEADERS:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
     assert len(_kernels._digest()) == 16

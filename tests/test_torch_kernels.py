@@ -140,3 +140,154 @@ def test_window_rejects_unsupported_windows(dev):
     q = torch.zeros(1, 96, 2, 72, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tatt.window_attention(q, q, q, 48)
+
+
+# ---- the fused-block kernels (ops/fused_block.py) ---------------------------
+
+def _linear_params(rng, n, k, dev):
+    w = _bf16(rng, (n, k), dev) * (k ** -0.5)
+    return w.contiguous(), _bf16(rng, (n,), dev) * 0.1
+
+
+# (m, n, k, ln): K = 144 (9*16, not a multiple of 32), N not a power of two,
+# M off the 128-row tile; the widest K and N of Hiera-L (the LayerNorm
+# prologue only where the blocks use it, K <= 1152)
+GEMM_SHAPES = [(m, n, k, ln) for m, n, k in [(300, 432, 144), (1000, 144, 288),
+                                             (257, 1728, 576), (130, 4608, 1152),
+                                             (128, 1152, 4608)]
+               for ln in (False, True) if k <= 1152 or not ln]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,ln", GEMM_SHAPES)
+@pytest.mark.parametrize("epilogue", ["bias", "gelu_tanh", "gelu_erf", "res_bf16", "res_f32"])
+def test_gemm_matches_plain(dev, m, n, k, ln, epilogue):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(m + n + k)
+    a = _bf16(rng, (m, k), dev)
+    w, bias = _linear_params(rng, n, k, dev)
+    lnp = (1 + 0.1 * _bf16(rng, (k,), dev), 0.1 * _bf16(rng, (k,), dev), 1e-6) if ln else None
+    res = _bf16(rng, (m, n), dev) if epilogue.startswith("res") else None
+    tatt.reset_launches()
+    out = fb.gemm(a, w, bias, ln=lnp, epilogue=epilogue, residual=res)
+    assert fb.gemm.launches == 1
+    ref = fb.gemm_reference(a, w, bias, ln=lnp, epilogue=epilogue, residual=res)
+    assert out.shape == ref.shape == (m, n) and torch.isfinite(out).all()
+    assert _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(100, 64), (8192, 1152), (37, 144)])
+def test_layer_norm_matches_plain(dev, rows, d):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(d)
+    x = _bf16(rng, (rows, d), dev) * 3 + 1
+    g, b = 1 + 0.1 * _bf16(rng, (d,), dev), 0.1 * _bf16(rng, (d,), dev)
+    out = fb.layer_norm(x, g, b, 1e-6)
+    assert _rel_err(out, fb.layer_norm_reference(x, g, b, 1e-6)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ws,c", [(8, 288), (4, 576), (16, 1152)])
+def test_window_pool_matches_plain(dev, ws, c):
+    """Exact: a max of bf16 values. The input is the q slice of a packed qkv."""
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(ws)
+    qkv = _bf16(rng, (2, 4 * ws * ws, 3 * c), dev)
+    q = qkv[:, :, :c]
+    out = fb.window_pool2x2(q, ws)
+    assert torch.equal(out, fb.window_pool2x2_reference(q, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,h", [(16, 8), (64, 4), (256, 16)])
+def test_window_pooled_queries_match_plain(dev, window, h):
+    """The transition block's attention: q windows of window / 4 = 4/16/64."""
+    rng = np.random.default_rng(window + 1)
+    lk = 4096
+    kv = _bf16(rng, (2, lk, 3, h, 72), dev)
+    q = _bf16(rng, (2, lk // 4, h, 72), dev)
+    k, v = kv[:, :, 1], kv[:, :, 2]
+    out = tatt.window_attention(q, k, v, window, q_window=window // 4)
+    ref = tatt.window_reference(q, k, v, window, 72 ** -0.5, q_window=window // 4)
+    assert _rel_err(out, ref) < TOL
+
+
+def _block_params(rng, c_in, d, f, dev, transition=False):
+    p = {"ln1_g": 1 + 0.1 * _bf16(rng, (c_in,), dev), "ln1_b": 0.1 * _bf16(rng, (c_in,), dev),
+         "ln2_g": 1 + 0.1 * _bf16(rng, (d,), dev), "ln2_b": 0.1 * _bf16(rng, (d,), dev)}
+    p["wqkv"], p["bqkv"] = _linear_params(rng, 3 * d, c_in, dev)
+    p["wproj"], p["bproj"] = _linear_params(rng, d, c_in, dev)
+    if transition:
+        p["wattn"], p["battn"] = _linear_params(rng, d, d, dev)
+    p["w1"], p["b1"] = _linear_params(rng, f, d, dev)
+    p["w2"], p["b2"] = _linear_params(rng, d, f, dev)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,d,h,window", [
+    ("window", 144, 2, 64), ("window", 288, 4, 16), ("window", 576, 8, 256),
+    ("split", 1152, 16, 64), ("global", 576, 8, 0)])
+def test_fused_blocks_match_plain(dev, kind, d, h, window):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(d)
+    x = _bf16(rng, (2, 1024, d), dev)
+    p = _block_params(rng, d, d, 4 * d, dev)
+    if kind == "global":
+        out = fb.fused_global_block(x, p, num_heads=h)
+        ref = fb.reference_global_block(x, p, num_heads=h)
+    else:
+        wrapper = fb.fused_window_block_split if kind == "split" else fb.fused_window_block
+        out = wrapper(x, p, num_heads=h, window=window)
+        ref = fb.reference_block(x, p, num_heads=h, window=window, split=kind == "split")
+    assert torch.isfinite(out).all() and _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,ws,h", [(144, 8, 4), (288, 4, 8), (576, 16, 16)])
+def test_transition_block_matches_plain(dev, c_in, ws, h):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(c_in)
+    d = 2 * c_in
+    x = _bf16(rng, (2, 4 * ws * ws, c_in), dev)
+    p = _block_params(rng, c_in, d, 4 * d, dev, transition=True)
+    out = fb.fused_transition_block(x, p, num_heads=h, ws=ws)
+    ref = fb.reference_transition(x, p, num_heads=h, ws=ws)
+    assert out.shape == (2, ws * ws, d) and _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_fused_kernels_reject_what_they_do_not_take(dev):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(5)
+    w, bias = _linear_params(rng, 64, 12, dev)
+    with pytest.raises(ValueError):  # K not a multiple of 8
+        fb.gemm(_bf16(rng, (16, 12), dev), w, bias)
+    w, bias = _linear_params(rng, 64, 32, dev)
+    with pytest.raises(TypeError):  # f32 input
+        fb.gemm(torch.zeros(16, 32, device=dev), w, bias)
+    with pytest.raises(ValueError):  # non-contiguous input
+        fb.gemm(_bf16(rng, (32, 16), dev).t(), w, bias)
+    with pytest.raises(ValueError):  # a residual epilogue without its residual's shape
+        fb.gemm(_bf16(rng, (16, 32), dev), w, bias, epilogue="res_bf16",
+                residual=_bf16(rng, (16, 32), dev))
+    with pytest.raises(ValueError):  # a LayerNorm prologue over rows wider than 1280
+        w_wide, b_wide = _linear_params(rng, 64, 1288, dev)
+        fb.gemm(_bf16(rng, (16, 1288), dev), w_wide, b_wide,
+                ln=(torch.ones(1288, device=dev), torch.zeros(1288, device=dev), 1e-6))
+    with pytest.raises(ValueError):  # odd window side
+        fb.window_pool2x2(_bf16(rng, (1, 9, 16), dev), 3)
+    with pytest.raises(ValueError):  # layer norm width not a multiple of 8
+        fb.layer_norm(_bf16(rng, (4, 12), dev), torch.ones(12, device=dev),
+                      torch.zeros(12, device=dev), 1e-6)
+    q = _bf16(rng, (1, 32, 2, 72), dev)
+    k = _bf16(rng, (1, 64, 2, 72), dev)
+    with pytest.raises(ValueError):  # q windows neither window nor window / 4
+        tatt.window_attention(q, k, k, 64, q_window=32)

@@ -1,6 +1,11 @@
-"""The port's SAM2 image path (forward_image, decode_features_with_language)
-against the JAX package's, on one seeded parameter tree and the same inputs,
-tiny Hiera with the fused switches off, f32 on the CPU.
+"""The port's SAM2 image path (Hiera, forward_image,
+decode_features_with_language) against the JAX package's, on one seeded
+parameter tree and the same inputs, f32 on the CPU, for each route of the
+tiny Hiera: the default fused config (fused window, global and transition
+blocks), the same with `fused_block_max_dim` below stage 4's width (the split
+window block), and the unfused path. On the CPU the JAX package runs its
+fused routes through their `_reference_*` mirrors, the port through its
+plain versions.
 
 Tolerance 1e-4 absolute: a module stack in f32 (the trunk's 8 blocks, the
 neck and the two-way decoder) whose sums run in another order.
@@ -12,27 +17,52 @@ import jax.numpy as jnp
 import torch
 
 from rga3_tpu.models.sam2.config import tiny_sam2_config as jax_tiny_sam2
+from rga3_tpu.models.sam2.hiera import Hiera as JaxHiera
 from rga3_tpu.models.sam2.model import Sam2Model as JaxSam2
 from rga3_tpu_torch.convert import torch_state_dict_from_flax
-from rga3_tpu_torch.models.sam2.config import tiny_sam2_config, unfused
+from rga3_tpu_torch.models.sam2.config import tiny_sam2_config
 from rga3_tpu_torch.models.sam2.model import Sam2Model
 
 from torch_port_support import jax_param_tree
 
 ATOL = 1e-4
+# the tiny Hiera's stage widths are 16/32/64/128 and its stage 4 is its one
+# transition block: 32 sends stage 3's windowed blocks through the split
+# window block (and its global block to the unfused path)
+ROUTES = {
+    "fused": {},
+    "split": {"fused_block_max_dim": 32},
+    "unfused": {"use_fused_block": False, "use_fused_transition": False},
+}
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = jax_tiny_sam2(64)
-    jcfg = jcfg.replace(hiera=jcfg.hiera.replace(
-        use_fused_block=False, use_fused_transition=False))
+def _configs(route):
+    jcfg, tcfg = jax_tiny_sam2(64), tiny_sam2_config(64)
+    return (jcfg.replace(hiera=jcfg.hiera.replace(**ROUTES[route])),
+            tcfg.replace(hiera=tcfg.hiera.replace(**ROUTES[route])))
+
+
+@pytest.fixture(scope="module", params=list(ROUTES))
+def pair(request):
+    jcfg, tcfg = _configs(request.param)
     jm = JaxSam2(jcfg)
     params = jax_param_tree(
         jm, jnp.zeros((2, 64, 64, 3)), jnp.zeros((2, 1, 32)), seed=3)
-    tm = Sam2Model(unfused(tiny_sam2_config(64)), device="cpu")
+    tm = Sam2Model(tcfg, device="cpu")
     tm.load_state_dict(torch_state_dict_from_flax(params), strict=True)
     return jm, params, tm
+
+
+def test_hiera_matches_jax(pair):
+    jm, params, tm = pair
+    x = np.random.default_rng(4).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    trunk = {"params": params["params"]["image_encoder"]["trunk"]}
+    jout = jax.jit(JaxHiera(jm.cfg.hiera).apply)(trunk, jnp.asarray(x))
+    with torch.no_grad():
+        tout = tm.image_encoder.trunk(torch.from_numpy(x))
+    assert len(tout) == len(jout) == 4
+    for a, b in zip(jout, tout):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=ATOL, rtol=0)
 
 
 def test_forward_image_matches_jax(pair):
@@ -67,12 +97,26 @@ def test_decode_features_with_language_matches_jax(pair):
             tout[key].numpy(), np.asarray(jout[key]), atol=ATOL, rtol=0)
 
 
-def test_fused_hiera_paths_raise():
-    """The default (fused) Hiera config has no CUDA kernels in the port: the
-    model raises instead of running another path."""
-    tm = Sam2Model(tiny_sam2_config(64), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.forward_image(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
+def test_one_state_dict_runs_fused_and_unfused_alike():
+    """One converted state_dict loads into the fused and the unfused port
+    models (the parameter tree does not depend on the route) and they agree
+    in f32: the counterpart of tests/test_fused_block.py::
+    test_hiera_fused_path_parity_and_tree."""
+    jcfg, _ = _configs("fused")
+    params = jax_param_tree(
+        JaxSam2(jcfg), jnp.zeros((2, 64, 64, 3)), jnp.zeros((2, 1, 32)), seed=6)
+    state = torch_state_dict_from_flax(params)
+    imgs = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8))
+    outs = []
+    for route in ("fused", "split", "unfused"):
+        tm = Sam2Model(_configs(route)[1], device="cpu")
+        tm.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            outs.append(tm.forward_image(imgs)["backbone_fpn"])
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            np.testing.assert_allclose(b.numpy(), a.numpy(), atol=ATOL, rtol=0)
 
 
 def test_window_partition_roundtrip_matches_jax():

@@ -1,20 +1,23 @@
 """The port's UniGRSegmentor end to end against the JAX package's.
 
-* Tiny random model, one seeded parameter tree in both packages, f32: the
-  [SEG] embeddings agree to 1e-4 (frames whose size needs no Qwen resize, so
-  both LLMs see the same pixels) and the thresholded masks on >= 99.9% of
-  pixels (the SAM frames are resized by PIL in the JAX package and by
-  torch's antialiased bicubic in the port, within one 8-bit level).
+* Tiny random model, one seeded parameter tree in both packages, f32, with
+  the default (fused) Hiera routes and with the unfused path: the [SEG]
+  embeddings agree to 1e-4 (frames whose size needs no Qwen resize, so both
+  LLMs see the same pixels) and the thresholded masks on >= 99.9% of pixels
+  (the SAM frames are resized by PIL in the JAX package and by torch's
+  antialiased bicubic in the port, within one 8-bit level).
 * The learned tiny checkpoint (runs/learning_proof_tiny/params_f16.npz)
   through the weight bridge, on the ReasonSeg-layout fixture with seed 11,
-  following scripts/verify_checkpoints.py (config 9): the port's gIoU and
-  cIoU within 0.01 of the JAX package's, and above 0.5.
+  following scripts/verify_checkpoints.py (config 9), both packages on the
+  default (fused) tiny config: the port's gIoU and cIoU within 0.01 of the
+  JAX package's, and above 0.5.
 """
 import importlib.util
 import os
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from rga3_tpu.config import SegHeadConfig as JaxSegHead
@@ -39,10 +42,13 @@ KW = dict(min_pixels=4 * 28 * 28, max_pixels=16 * 28 * 28,
           video_max_pixels=16 * 28 * 28)
 
 
-def test_segment_video_multi_matches_jax():
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_segment_video_multi_matches_jax(fused):
     jsam = jax_tiny_sam2(64)
-    jsam = jsam.replace(hiera=jsam.hiera.replace(
-        use_fused_block=False, use_fused_transition=False))
+    if not fused:
+        jsam = jsam.replace(hiera=jsam.hiera.replace(
+            use_fused_block=False, use_fused_transition=False))
+    sam = tiny_sam2_config(64) if fused else unfused(tiny_sam2_config(64))
     jcfg = JaxUniGRConfig(qwen=jax_tiny_config(152_000), sam2=jsam,
                           seg=JaxSegHead(out_dim=32, seg_token_id=SEG_ID))
     jm = JaxUniGR(jcfg)
@@ -50,7 +56,7 @@ def test_segment_video_multi_matches_jax():
                             jnp.zeros((1, 8), jnp.int32), seed=5)
     jseg = JaxSegmentor(jm, params, JaxProcessor.from_pretrained("dummy", **KW),
                         num_frames_mllm=2, sam_chunk=2, compute_dtype=jnp.float32)
-    cfg = UniGRConfig(qwen=tiny_config(152_000), sam2=unfused(tiny_sam2_config(64)),
+    cfg = UniGRConfig(qwen=tiny_config(152_000), sam2=sam,
                       seg=SegHeadConfig(out_dim=32, seg_token_id=SEG_ID))
     tm = UniGR(cfg, device="cpu")
     tm.load_state_dict(torch_state_dict_from_flax(params), strict=True)
@@ -92,7 +98,7 @@ def test_learned_checkpoint_giou_matches_jax(tmp_path):
     proc = QwenVLProcessor.from_pretrained("dummy")
     q = tiny_config()
     q = q.replace(text=q.text.replace(lora_rank=128, lora_alpha=256.0))
-    sam = unfused(tiny_sam2_config())
+    sam = tiny_sam2_config()
     cfg = UniGRConfig(qwen=q, sam2=sam,
                       seg=SegHeadConfig(out_dim=sam.d_model, seg_token_id=proc.seg_token_id))
     tm = UniGR(cfg, device="cpu")
