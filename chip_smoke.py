@@ -19,7 +19,7 @@ Phases, each timed on its own line:
      the fused blocks routed to the plain versions, on the same weights; then
      the earlier unfused Hiera path (`unfused(cfg)`) on the
      same weights, its own launches counted, against the fused route, and
-     the two routes' SAM encode of one chunk timed in turns;
+     the two routes' SAM encode of one chunk timed in six alternating pairs;
   5. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the main
      path made (shapes, strides, options, segment ids; bf16 inputs; per
@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -51,6 +52,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # it); a kernel that skipped a quarter of the keys would be off by ~1x.
 ROW_TOL = 2e-2
 REPS = 10  # timed launches per kernel shape, after one warm-up
+ENCODE_PAIRS = 6  # fused/unfused SAM encodes timed in turns
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
@@ -303,31 +305,23 @@ def check_gemm(key, _extra, gen, reps):
     import torch.nn.functional as F
     from rga3_tpu_torch.ops import fused_block as fb
 
-    m, n, k, has_ln, eps, epi = key
+    m, n, k, epi = key
     a = rand((m, k), gen)
     w, bias = linear_params(n, k, gen)
-    ln = (1 + rand((k,), gen, 0.1), rand((k,), gen, 0.1), eps) if has_ln else None
     res = rand((m, n), gen) if epi.startswith("res") else None
-    kw = dict(ln=ln, epilogue=epi, residual=res)
+    kw = dict(epilogue=epi, residual=res)
 
     def lib():
-        h = F.linear(lib_ln(a, *ln) if ln else a, w, bias)
+        h = F.linear(a, w, bias)
         if epi.startswith("gelu"):
             return F.gelu(h, approximate="tanh" if epi == "gelu_tanh" else "none")
         return h if res is None else res + h
 
     nbytes = 2.0 * (m * k + n * k + m * n * (2 if res is not None else 1))
-    r = measure(f"M={m} N={n} K={k} ln={has_ln} epilogue={epi}",
-                lambda: fb.gemm(a, w, bias, **kw),
-                lambda: fb.gemm_reference(a, w, bias, **kw), lib,
-                2.0 * m * n * k, nbytes, reps)
-    if ln:
-        # the same function with the LayerNorm as its own pass: the layer_norm
-        # kernel, then the GEMM without the prologue (a design yardstick)
-        split = dict(kw, ln=None)
-        r["desc"] += (", layer_norm kernel + gemm without prologue ms %.4f" % time_ms(
-            lambda: fb.gemm(fb.layer_norm(a, *ln), w, bias, **split), reps))
-    return r
+    return measure(f"M={m} N={n} K={k} epilogue={epi}",
+                   lambda: fb.gemm(a, w, bias, **kw),
+                   lambda: fb.gemm_reference(a, w, bias, **kw), lib,
+                   2.0 * m * n * k, nbytes, reps)
 
 
 def check_layer_norm(key, _extra, gen, reps):
@@ -512,9 +506,14 @@ KERNELS = (
 # launches of the fused block wrappers in one 8-frame call: Hiera-L's
 # windowed blocks at widths <= 576 (stages 1-3: 2 + 5 + 32), its global
 # blocks (23, 33, 43), its stage-4 windowed blocks and its q-pool blocks
-# (2, 8, 44)
+# (2, 8, 44); rows 4-7 on their own in the global and split blocks only (the
+# window and transition blocks chain the kernels directly, as the Pallas
+# kernels are one each); per block two LayerNorms and four products (five
+# in a transition)
 HIERA_L_LAUNCHES = {"fused_window_block": 39, "fused_global_block": 3,
-                    "fused_window_block_split": 3, "fused_transition_block": 3}
+                    "fused_window_block_split": 3, "fused_transition_block": 3,
+                    "ln_qkv": 6, "proj_mlp": 3, "proj_ln": 3, "mlp_blocked": 3,
+                    "gemm": 4 * 45 + 5 * 3, "layer_norm": 2 * 48, "window_pool2x2": 2 * 3}
 
 
 # --------------------------------------------------------------------------
@@ -709,7 +708,7 @@ def main() -> int:
             raise AssertionError(f"{k} was not launched on the main path")
     for k, n in HIERA_L_LAUNCHES.items():
         if launches[k] != n:
-            raise AssertionError(f"{k}: {launches[k]} launches, Hiera-L has {n} such blocks")
+            raise AssertionError(f"{k}: {launches[k]} launches, Hiera-L's blocks make {n}")
     # the same call again, warm (kernels loaded, allocator and cuBLAS set up)
     for k in seg.phase_seconds:
         seg.phase_seconds[k] = 0.0
@@ -764,12 +763,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
-    # SAM encode of one 8-frame chunk, both routes warm, in turns
+    # SAM encode of one 8-frame chunk, both routes warm, in turns (pairs
+    # alternate which route runs first); host time varies by ~10% call to
+    # call, so a pair alone does not order the routes
     turns = [("fused", fused_sam), ("unfused", unfused_sam)]
-    turns += turns[::-1]
-    times = [(name, encode_s(sam)) for name, sam in turns]
-    log("SAM encode of one chunk, warm, in turns (s): "
-        + ", ".join(f"{name} {t:.4f}" for name, t in times))
+    times = {"fused": [], "unfused": []}
+    for i in range(ENCODE_PAIRS):
+        for name, sam in (turns if i % 2 == 0 else turns[::-1]):
+            times[name].append(encode_s(sam))
+    log(f"SAM encode of one chunk, warm, {ENCODE_PAIRS} pairs in turns (s): " + "; ".join(
+        f"{name} median {statistics.median(t):.4f} [" + " ".join(f"{x:.4f}" for x in t) + "]"
+        for name, t in times.items()))
     model.grounding_encoder = fused_sam
     del unfused_sam
     agree_u = ((logits_k > 0) == (logits_u > 0)).float().mean().item()

@@ -1,12 +1,10 @@
-// Tiled bf16 matrix product with a LayerNorm prologue and fused epilogues,
-// for Hopper (sm_90a), on the tensor cores through mma.sync.m16n8k16.
+// Tiled bf16 matrix product with fused epilogues, for Hopper (sm_90a), on
+// the tensor cores through mma.sync.m16n8k16.
 //
-//   out[m, n] = epilogue(sum_k prologue(A)[m, k] * W[n, k] + bias[n])
+//   out[m, n] = epilogue(sum_k A[m, k] * W[n, k] + bias[n])
 //
-// A is (M, K) and W is (N, K), nn.Linear's layout, both bf16 with the K
-// dim contiguous; products accumulate in f32.
-//   prologue: none, or a row LayerNorm of A (f32 statistics over the full
-//             row, gamma and beta in f32), rounded to bf16 before the product;
+// A is (M, K) and W is (N, K), nn.Linear's layout, and bias is (N), all
+// bf16 with the K dim contiguous; products and the bias add are in f32.
 //   epilogue: kBias     out = bf16(acc + b)
 //             kGelu*    out = bf16(gelu(f32(bf16(acc + b)))), tanh or erf form
 //             kResBf16  out = bf16(res + bf16(acc + b))   (a bf16 residual add)
@@ -14,14 +12,16 @@
 //
 // Replaces the matrix products of the Pallas TPU kernels in
 // rga3_tpu/ops/fused_block.py, with the same rounding points as their bodies:
-// `_fused_kernel` (:105) and `_transition_kernel` (:917) (LN1 -> qkv and
-// proj, attn proj + residual, LN2 -> MLP + residual), `_ln_matmul_kernel`
-// (:312), `_proj_mlp_kernel` (:324), the product of `_proj_ln_kernel` (:543)
-// and `_mlp_blocked_kernel` (:583). Those kernels keep a whole block's
-// weights resident in VMEM and chain every product of a transformer block in
-// one kernel. On the H100 even one stage-3 block's 8 MB of bf16 weights is
-// 36 times a block's shared memory, so the port chains this kernel (and the
-// attention kernels) through device memory instead, one launch per product.
+// `_fused_kernel` (:105) and `_transition_kernel` (:917) (qkv and proj,
+// attn proj + residual, MLP + residual), `_ln_matmul_kernel` (:312),
+// `_proj_mlp_kernel` (:324), the product of `_proj_ln_kernel` (:543) and
+// `_mlp_blocked_kernel` (:583). Those kernels keep a whole block's weights
+// resident in VMEM and chain every product of a transformer block in one
+// kernel. On the H100 even one stage-3 block's 8 MB of bf16 weights is 36
+// times a block's shared memory, so the port chains this kernel, the
+// LayerNorm kernel of row_ops.cu (whose bf16 output is the operand the
+// Pallas bodies multiply) and the attention kernels through device memory,
+// one launch per product.
 //
 // What bounds it on the H100: a product does 2*M*N*K flops on
 // 2*(M*K + N*K + M*N) bytes; with K = 144 or 288 (Hiera stages 1-2) and
@@ -33,10 +33,8 @@
 // steps of 32 through a 4-stage ring of shared memory filled by cp.async, so
 // three tiles' loads are in flight while the tensor cores work on a fourth;
 // fragments are read with ldmatrix from rows padded to 80 bytes, free of
-// bank conflicts. The LayerNorm prologue normalises each tile in shared
-// memory when it lands (each thread the chunks it copied), from statistics a
-// first pass computes over the block's 128 rows, each row read once into
-// registers. No TMA or wgmma yet: that is for the change that makes it fast.
+// bank conflicts. No TMA or wgmma yet: that is for the change that makes it
+// fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,8 +48,6 @@ constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kThreads = 256;           // 8 warps: 2 along M x 4 along N
 constexpr int kLds = kBK + 8;           // smem row, in bf16: 80 bytes
 constexpr int kChunks = kBM * kBK / 8;  // 16-byte chunks per tile (512)
-constexpr int kLnChunks = 5;            // a row's 16-byte chunks per lane in row_stats
-constexpr int kLnMaxK = kLnChunks * 32 * 8;  // K with the LayerNorm prologue: 1280
 constexpr int kStages = 4;              // cp.async ring depth
 constexpr int kStageElems = (kBM + kBN) * kLds;
 constexpr int kSmemBytes = kStages * kStageElems * 2;  // 80 KB: dynamic shared memory
@@ -61,14 +57,11 @@ enum Epilogue { kBias = 0, kGeluTanh = 1, kGeluErf = 2, kResBf16 = 3, kResF32 = 
 struct GemmParams {
   const bf16* a;
   const bf16* w;
-  const float* bias;  // (N)
-  const float* ln_g;  // (K), with ln_b: the LayerNorm prologue, or null
-  const float* ln_b;
+  const bf16* bias;  // (N)
   const bf16* res;    // (M, N) residual for kResBf16 / kResF32
   bf16* out;
   int64_t lda, ldw, ldr, ldo;
   int m, n, k;
-  float eps;
 };
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
@@ -98,49 +91,6 @@ __device__ __forceinline__ float gelu_erf(float x) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// Mean and 1/sqrt(var + eps) of the block's rows, two passes in f32 as the
-// Pallas kernels' `_layernorm` computes them, over a row held in registers
-// (read once); rows past M get zeros.
-__device__ void row_stats(const GemmParams& p, int m0, float* mu, float* rs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = p.k / 8;
-  for (int r = warp; r < kBM; r += kThreads / 32) {
-    const int row = m0 + r;
-    float sum = 0.f, sq = 0.f, mean = 0.f;
-    if (row < p.m) {
-      const uint4* x = reinterpret_cast<const uint4*>(p.a + row * p.lda);
-      float2 v[kLnChunks][4];
-#pragma unroll
-      for (int j = 0; j < kLnChunks; ++j) {
-        const int c = lane + 32 * j;
-        const uint4 u = c < chunks ? x[c] : make_uint4(0, 0, 0, 0);  // zeros add nothing
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          v[j][e] = __bfloat1622float2(h[e]);
-          sum += v[j][e].x + v[j][e].y;
-        }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      mean = sum / p.k;
-#pragma unroll
-      for (int j = 0; j < kLnChunks; ++j) {
-        if (lane + 32 * j >= chunks) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sq += (v[j][e].x - mean) * (v[j][e].x - mean) + (v[j][e].y - mean) * (v[j][e].y - mean);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
-    if (lane == 0) {
-      mu[r] = mean;
-      rs[r] = row < p.m ? rsqrtf(sq / p.k + p.eps) : 0.f;
-    }
-  }
 }
 
 __device__ __forceinline__ void cp_async16(bf16* smem, const bf16* gmem, bool valid) {
@@ -176,39 +126,10 @@ __device__ __forceinline__ void load_stage(const GemmParams& p, int m0, int n0, 
   }
 }
 
-// The LayerNorm prologue on this thread's own chunks of a landed A tile.
-__device__ __forceinline__ void ln_stage(const GemmParams& p, int m0, int k0, const float* mu,
-                                         const float* rs, bf16* as) {
-  const int kc = (threadIdx.x & 3) * 8;
-  const int kk = k0 + kc;
-  if (kk >= p.k) return;  // padding stays zero
-  const float4* g4 = reinterpret_cast<const float4*>(p.ln_g + kk);
-  const float4* b4 = reinterpret_cast<const float4*>(p.ln_b + kk);
-  const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-  const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-  const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-  for (int i = 0; i < kChunks / kThreads; ++i) {
-    const int r = (threadIdx.x + i * kThreads) >> 2;
-    if (m0 + r >= p.m) continue;
-    uint4* chunk = reinterpret_cast<uint4*>(as + r * kLds + kc);
-    uint4 u = *chunk;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-    const float m = mu[r], s = rs[r];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      h[e] = __floats2bfloat162_rn((f.x - m) * s * g[2 * e] + b[2 * e],
-                                   (f.y - m) * s * g[2 * e + 1] + b[2 * e + 1]);
-    }
-    *chunk = u;
-  }
-}
-
 template <int EPI>
 __device__ __forceinline__ __nv_bfloat162 epilogue(const GemmParams& p, float acc0, float acc1,
                                                    int row, int col) {
-  const float b0 = p.bias[col], b1 = p.bias[col + 1];
+  const float b0 = __bfloat162float(p.bias[col]), b1 = __bfloat162float(p.bias[col + 1]);
   if (EPI == kBias) return __floats2bfloat162_rn(acc0 + b0, acc1 + b1);
   if (EPI == kGeluTanh)
     return __floats2bfloat162_rn(gelu_tanh(round_bf16(acc0 + b0)),
@@ -223,11 +144,10 @@ __device__ __forceinline__ __nv_bfloat162 epilogue(const GemmParams& p, float ac
   return __floats2bfloat162_rn(r.x + b0 + acc0, r.y + b1 + acc1);  // kResF32
 }
 
-template <bool LN, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(GemmParams p) {
   extern __shared__ uint4 smem4[];  // kStages x (A tile, W tile)
   bf16* smem = reinterpret_cast<bf16*>(smem4);
-  __shared__ float mu[LN ? kBM : 1], rs[LN ? kBM : 1];
 
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -239,10 +159,6 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(GemmParams p) {
     if (s < ktiles) load_stage(p, m0, n0, s * kBK, smem + s * kStageElems,
                                smem + s * kStageElems + kBM * kLds);
     cp_async_commit();
-  }
-  if (LN) {
-    row_stats(p, m0, mu, rs);
-    __syncthreads();
   }
 
   float acc[4][4][4];
@@ -257,7 +173,6 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(GemmParams p) {
     bf16* as = smem + (kt % kStages) * kStageElems;
     bf16* ws = as + kBM * kLds;
     cp_async_wait_pending();  // this thread's copies of tile kt have landed
-    if (LN) ln_stage(p, m0, kt * kBK, mu, rs, as);
     __syncthreads();  // everyone's have; and tile kt - 1's stage is consumed
     const int next = kt + kStages - 1;
     if (next < ktiles) {
@@ -307,24 +222,23 @@ __global__ void __launch_bounds__(kThreads, 2) gemm_kernel(GemmParams p) {
   }
 }
 
-template <bool LN, int EPI>
+template <int EPI>
 cudaError_t launch_one(const GemmParams& p, cudaStream_t stream) {
   static const cudaError_t set = cudaFuncSetAttribute(
-      gemm_kernel<LN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (set != cudaSuccess) return set;
   const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM);
-  gemm_kernel<LN, EPI><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  gemm_kernel<EPI><<<grid, kThreads, kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool LN>
 cudaError_t launch(const GemmParams& p, int epi, cudaStream_t stream) {
   switch (epi) {
-    case kBias: return launch_one<LN, kBias>(p, stream);
-    case kGeluTanh: return launch_one<LN, kGeluTanh>(p, stream);
-    case kGeluErf: return launch_one<LN, kGeluErf>(p, stream);
-    case kResBf16: return launch_one<LN, kResBf16>(p, stream);
-    case kResF32: return launch_one<LN, kResF32>(p, stream);
+    case kBias: return launch_one<kBias>(p, stream);
+    case kGeluTanh: return launch_one<kGeluTanh>(p, stream);
+    case kGeluErf: return launch_one<kGeluErf>(p, stream);
+    case kResBf16: return launch_one<kResBf16>(p, stream);
+    case kResF32: return launch_one<kResF32>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -334,29 +248,21 @@ cudaError_t launch(const GemmParams& p, int epi, cudaStream_t stream) {
 
 // Plain C entry point for ctypes. Leading dims are in elements. K must be a
 // multiple of 8, N even, lda and ldw multiples of 8, ldr and ldo even, a and
-// w 16-byte aligned; ln_g and ln_b both given (the prologue, K <= 1280) or
-// both null;
-// res given for the residual epilogues. M up to 65535 * 128 rows. Returns a
-// cudaError_t (0 on success).
+// w 16-byte aligned; bias bf16 (N); res given for the residual epilogues. M
+// up to 65535 * 128 rows. Returns a cudaError_t (0 on success).
 extern "C" int rga3_gemm_bf16(const void* a, int64_t lda, const void* w, int64_t ldw,
-                              const void* bias, const void* ln_g, const void* ln_b,
-                              float eps, const void* res, int64_t ldr, void* out,
-                              int64_t ldo, int m, int n, int k, int epilogue,
-                              void* stream) {
+                              const void* bias, const void* res, int64_t ldr, void* out,
+                              int64_t ldo, int m, int n, int k, int epilogue, void* stream) {
   using namespace rga3;
-  const bool ln = ln_g != nullptr;
   const bool needs_res = epilogue == kResBf16 || epilogue == kResF32;
   if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 2 || lda % 8 || ldw % 8 || ldo % 2 ||
-      (needs_res && (res == nullptr || ldr % 2)) || ln != (ln_b != nullptr) ||
-      (ln && k > kLnMaxK) ||
-      bias == nullptr || (m + kBM - 1) / kBM > 65535)
+      (needs_res && (res == nullptr || ldr % 2)) || bias == nullptr ||
+      (m + kBM - 1) / kBM > 65535)
     return cudaErrorInvalidValue;
   GemmParams p;
   p.a = static_cast<const bf16*>(a);
   p.w = static_cast<const bf16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.ln_g = static_cast<const float*>(ln_g);
-  p.ln_b = static_cast<const float*>(ln_b);
+  p.bias = static_cast<const bf16*>(bias);
   p.res = static_cast<const bf16*>(res);
   p.out = static_cast<bf16*>(out);
   p.lda = lda;
@@ -366,7 +272,5 @@ extern "C" int rga3_gemm_bf16(const void* a, int64_t lda, const void* w, int64_t
   p.m = m;
   p.n = n;
   p.k = k;
-  p.eps = eps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return ln ? launch<true>(p, epilogue, s) : launch<false>(p, epilogue, s);
+  return launch(p, epilogue, static_cast<cudaStream_t>(stream));
 }

@@ -2,9 +2,12 @@
 //
 //   * rga3_layer_norm_bf16: y = bf16(LayerNorm(x)) over rows of D, with f32
 //     statistics (two passes: mean, then the mean of squared deviations) and
-//     f32 gamma and beta. It is the second output of the Pallas TPU kernel
-//     `_proj_ln_kernel` (rga3_tpu/ops/fused_block.py:543), whose first
-//     output, y = x + proj, comes from the GEMM's residual epilogue.
+//     bf16 gamma and beta widened to f32. It is the LayerNorm of the Pallas
+//     TPU kernels in rga3_tpu/ops/fused_block.py (`_layernorm`, :99): LN1
+//     and LN2 before the GEMM of `_fused_kernel` (:105), `_ln_matmul_kernel`
+//     (:312), `_proj_mlp_kernel` (:324) and `_transition_kernel` (:917),
+//     whose bodies round the normalised rows to bf16 before the product, and
+//     the second output of `_proj_ln_kernel` (:543).
 //   * rga3_window_pool2x2_bf16: the 2x2 max pool inside each ws x ws window
 //     of window-major tokens, `_pool_win_2x2` of `_transition_kernel`
 //     (rga3_tpu/ops/fused_block.py:907,917): the q-pool transition block's
@@ -29,7 +32,7 @@ constexpr int kRowsPerBlock = 8;  // warps per LayerNorm block
 constexpr int kPoolThreads = 256;
 
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-    layer_norm_kernel(const bf16* x, int64_t ldx, const float* g, const float* b, bf16* y,
+    layer_norm_kernel(const bf16* x, int64_t ldx, const bf16* g, const bf16* b, bf16* y,
                       int64_t ldy, int rows, int d, float eps) {
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -66,16 +69,16 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   for (int c = lane; c < chunks; c += 32) {
     uint4 u = xr[c];
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-    const float4* g4 = reinterpret_cast<const float4*>(g + c * 8);
-    const float4* b4 = reinterpret_cast<const float4*>(b + c * 8);
-    const float4 g0 = g4[0], g1 = g4[1], b0 = b4[0], b1 = b4[1];
-    const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-    const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const uint4 gu = reinterpret_cast<const uint4*>(g)[c];
+    const uint4 bu = reinterpret_cast<const uint4*>(b)[c];
+    const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&gu);
+    const __nv_bfloat162* bh = reinterpret_cast<const __nv_bfloat162*>(&bu);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 f = __bfloat1622float2(h[e]);
-      h[e] = __floats2bfloat162_rn((f.x - mean) * rs * gg[2 * e] + bb[2 * e],
-                                   (f.y - mean) * rs * gg[2 * e + 1] + bb[2 * e + 1]);
+      const float2 gg = __bfloat1622float2(gh[e]), bb = __bfloat1622float2(bh[e]);
+      h[e] = __floats2bfloat162_rn((f.x - mean) * rs * gg.x + bb.x,
+                                   (f.y - mean) * rs * gg.y + bb.y);
     }
     yr[c] = u;
   }
@@ -124,7 +127,7 @@ __global__ void __launch_bounds__(kPoolThreads)
 // Plain C entry points for ctypes. Leading dims are in elements, multiples
 // of 8, and the pointers 16-byte aligned. Each returns a cudaError_t.
 
-// d a multiple of 8; g and b f32 (d).
+// d a multiple of 8; g and b bf16 (d), 16-byte aligned.
 extern "C" int rga3_layer_norm_bf16(const void* x, int64_t ldx, const void* g, const void* b,
                                     void* y, int64_t ldy, int rows, int d, float eps,
                                     void* stream) {
@@ -132,8 +135,8 @@ extern "C" int rga3_layer_norm_bf16(const void* x, int64_t ldx, const void* g, c
   if (rows <= 0 || d <= 0 || d % 8 || ldx % 8 || ldy % 8) return cudaErrorInvalidValue;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   layer_norm_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), ldx, static_cast<const float*>(g),
-      static_cast<const float*>(b), static_cast<bf16*>(y), ldy, rows, d, eps);
+      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(g),
+      static_cast<const bf16*>(b), static_cast<bf16*>(y), ldy, rows, d, eps);
   return cudaGetLastError();
 }
 

@@ -95,9 +95,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
     )
     lib.rga3_window_attention_bf16.restype = i
-    lib.rga3_gemm_bf16.argtypes = (
-        [p, i64, p, i64, p, p, p, f, p, i64, p, i64, i, i, i, i, p]
-    )
+    lib.rga3_gemm_bf16.argtypes = [p, i64, p, i64, p, p, i64, p, i64, i, i, i, i, p]
     lib.rga3_gemm_bf16.restype = i
     lib.rga3_layer_norm_bf16.argtypes = [p, i64, p, p, p, i64, i, i, f, p]
     lib.rga3_layer_norm_bf16.restype = i

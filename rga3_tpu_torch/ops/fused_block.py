@@ -7,9 +7,11 @@ H100 block's shared memory, so the port computes the same functions, with
 the same bf16 rounding points, as chains of three kernels through device
 memory:
 
-  * `gemm` launches `csrc/gemm.cu`: a tensor-core bf16 product with an
-    optional LayerNorm prologue and a bias, GELU or residual epilogue;
-  * `layer_norm` and `window_pool2x2` launch `csrc/row_ops.cu`;
+  * `gemm` launches `csrc/gemm.cu`: a tensor-core bf16 product with a
+    bias, GELU or residual epilogue;
+  * `layer_norm` (whose bf16 output is the operand the Pallas bodies
+    multiply after each LayerNorm) and `window_pool2x2` launch
+    `csrc/row_ops.cu`;
   * attention is `window_attention` (with pooled queries for the q-pool
     transition) or `flash_attention` from `ops.attention`.
 
@@ -34,10 +36,14 @@ function and are not taken.
 Every wrapper computes its plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernels or raises; it counts the calls that took the
 kernel route in `<wrapper>.launches` and records them in `<wrapper>.shapes`
-(see `ops.attention.reset_launches`). The plain versions (`*_reference`,
-`reference_*`) round to bf16 where the Pallas kernel bodies do: products
-take bf16 operands and add the bias in f32 before rounding; LayerNorm
-statistics are f32; GELU runs in f32 on the rounded pre-activation; the
+(see `ops.attention.reset_launches`). As in the JAX package, the fused
+window and transition blocks are one function each: they chain the three
+kernels directly, and only the global and split window blocks call (and so
+count) `ln_qkv`, `proj_mlp`, `proj_ln` and `mlp_blocked`. The plain
+versions (`*_reference`, `reference_*`) round to bf16 where the Pallas
+kernel bodies do: products take bf16 operands and add the bias in f32
+before rounding; LayerNorm statistics are f32 and its output is rounded
+before the product; GELU runs in f32 on the rounded pre-activation; the
 residual adds are bf16 adds, except `mlp_blocked`'s, which adds in f32 and
 rounds once.
 """
@@ -57,7 +63,6 @@ from .attention import (
 )
 
 EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "res_bf16": 3, "res_f32": 4}
-LN_MAX_K = 1280  # the GEMM's LayerNorm prologue holds a row in registers
 
 
 def gelu_variant(cfg_tanh: Optional[bool] = None) -> bool:
@@ -81,12 +86,9 @@ def _layernorm(x32, g, b, eps):
 # --------------------------------------------------------------------------
 
 
-def gemm_reference(a, w, bias, *, ln=None, epilogue="bias", residual=None):
-    """epilogue(prologue(a) @ w.T + bias) in a's dtype. `ln` = (g, b, eps)
-    is the LayerNorm prologue; see `gemm` for the epilogues."""
+def gemm_reference(a, w, bias, *, epilogue="bias", residual=None):
+    """epilogue(a @ w.T + bias) in a's dtype; see `gemm` for the epilogues."""
     dt = a.dtype
-    if ln is not None:
-        a = _layernorm(a.float(), *ln).to(dt)
     acc = a.float() @ w.float().t()
     if epilogue == "res_f32":
         return (residual.float() + bias.float() + acc).to(dt)
@@ -131,77 +133,58 @@ def _check_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
 
 
-def _f32(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A small parameter (bias, LayerNorm gamma or beta) as the f32 vector
-    the kernels read."""
-    if t.device != like.device:
-        raise ValueError("parameters and inputs on different devices")
-    return t.to(torch.float32).contiguous()
+def gemm(a, w, bias, *, epilogue="bias", residual=None):
+    """out[..., n] = epilogue(a[..., :] @ w[n, :] + bias[n]).
 
+    a: (..., K); w: (N, K); bias: (N,). `epilogue`: "bias"; "gelu_tanh" /
+    "gelu_erf" (GELU of the rounded sum); "res_bf16" (residual + rounded
+    sum, a bf16 add); "res_f32" (residual + bias + the f32 product, rounded
+    once). `residual` is (..., N).
 
-def gemm(a, w, bias, *, ln=None, epilogue="bias", residual=None):
-    """out[..., n] = epilogue(prologue(a)[..., :] @ w[n, :] + bias[n]).
-
-    a: (..., K); w: (N, K); bias: (N,); `ln` = (g, b, eps): a LayerNorm of
-    a's rows first, f32 statistics, rounded to a's dtype. `epilogue`:
-    "bias"; "gelu_tanh" / "gelu_erf" (GELU of the rounded sum); "res_bf16"
-    (residual + rounded sum, a bf16 add); "res_f32" (residual + bias + the
-    f32 product, rounded once). `residual` is (..., N).
-
-    On a CUDA tensor it launches `csrc/gemm.cu` (bf16, contiguous, K a
-    multiple of 8 and at most LN_MAX_K with `ln`, N even); on a CPU tensor
-    it computes `gemm_reference`."""
+    On a CUDA tensor it launches `csrc/gemm.cu` (bf16 and contiguous, the
+    bias too; K a multiple of 8, N even); on a CPU tensor it computes
+    `gemm_reference`."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"gemm: unknown epilogue {epilogue!r}")
     if a.device.type == "cpu":
-        return gemm_reference(a, w, bias, ln=ln, epilogue=epilogue, residual=residual)
+        return gemm_reference(a, w, bias, epilogue=epilogue, residual=residual)
     k = a.shape[-1]
     n = w.shape[0]
     m = a.numel() // k
     needs_res = epilogue.startswith("res")
-    _check_cuda("gemm", a, w, *((residual,) if needs_res else ()))
+    _check_cuda("gemm", a, w, bias, *((residual,) if needs_res else ()))
     if w.shape != (n, k) or bias.shape != (n,) or k % 8 or n % 2 or m == 0:
         raise ValueError(f"gemm: unsupported shapes a {tuple(a.shape)} w {tuple(w.shape)}")
     if needs_res and residual.shape != a.shape[:-1] + (n,):
         raise ValueError("gemm: the residual must have the output's shape")
-    bias32 = _f32(bias, a)
-    g32 = b32 = None
-    eps = 0.0
-    if ln is not None:
-        g32, b32, eps = _f32(ln[0], a), _f32(ln[1], a), float(ln[2])
-        if g32.shape != (k,) or b32.shape != (k,) or k > LN_MAX_K:
-            raise ValueError(f"gemm: LayerNorm prologue over K={k} (at most {LN_MAX_K}) "
-                             "with (K,) parameters")
     out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _kernels.library().rga3_gemm_bf16(
-        a.data_ptr(), k, w.data_ptr(), k, bias32.data_ptr(),
-        None if g32 is None else g32.data_ptr(),
-        None if b32 is None else b32.data_ptr(), eps,
+        a.data_ptr(), k, w.data_ptr(), k, bias.data_ptr(),
         residual.data_ptr() if needs_res else None, n,
         out.data_ptr(), n, m, n, k, EPILOGUES[epilogue], stream,
     )
     _kernels.check(err, "gemm")
-    _record(gemm, (m, n, k, ln is not None, eps, epilogue))
+    _record(gemm, (m, n, k, epilogue))
     return out
 
 
 def layer_norm(x, g, b, eps):
     """bf16(LayerNorm(x)) over the last dim with f32 statistics. On a CUDA
-    tensor it launches `csrc/row_ops.cu` (bf16, contiguous, D a multiple of
-    8); on a CPU tensor it computes `layer_norm_reference`."""
+    tensor it launches `csrc/row_ops.cu` (bf16 and contiguous, gamma and
+    beta too; D a multiple of 8); on a CPU tensor it computes
+    `layer_norm_reference`."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, g, b, eps)
-    _check_cuda("layer_norm", x)
+    _check_cuda("layer_norm", x, g, b)
     d = x.shape[-1]
     rows = x.numel() // d
     if d % 8 or rows == 0 or g.shape != (d,) or b.shape != (d,):
         raise ValueError(f"layer_norm: unsupported shape {tuple(x.shape)}")
-    g32, b32 = _f32(g, x), _f32(b, x)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels.library().rga3_layer_norm_bf16(
-        x.data_ptr(), d, g32.data_ptr(), b32.data_ptr(), out.data_ptr(), d,
+        x.data_ptr(), d, g.data_ptr(), b.data_ptr(), out.data_ptr(), d,
         rows, d, float(eps), stream,
     )
     _kernels.check(err, "layer_norm")
@@ -244,13 +227,7 @@ def window_pool2x2(x, ws: int):
 
 
 def _ln_qkv(o, x, g, b, w, bias, eps):
-    return o.gemm(x, w, bias, ln=(g, b, eps))
-
-
-def _proj_mlp(o, attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2, eps, gelu_tanh):
-    y = o.gemm(attn, wproj, bproj, epilogue="res_bf16", residual=x)
-    h = o.gemm(y, w1, b1, ln=(ln2_g, ln2_b, eps), epilogue=_gelu_epilogue(gelu_tanh))
-    return o.gemm(h, w2, b2, epilogue="res_bf16", residual=y)
+    return o.gemm(o.layer_norm(x, g, b, eps), w, bias)
 
 
 def _proj_ln(o, attn, x, wproj, bproj, ln2_g, ln2_b, eps):
@@ -258,36 +235,46 @@ def _proj_ln(o, attn, x, wproj, bproj, ln2_g, ln2_b, eps):
     return y, o.layer_norm(y, ln2_g, ln2_b, eps)
 
 
-def _mlp_blocked(o, ln2y, y, w1, b1, w2, b2, gelu_tanh):
+def _mlp(o, ln2y, y, w1, b1, w2, b2, gelu_tanh, residual_epilogue):
     h = o.gemm(ln2y, w1, b1, epilogue=_gelu_epilogue(gelu_tanh))
-    return o.gemm(h, w2, b2, epilogue="res_f32", residual=y)
+    return o.gemm(h, w2, b2, epilogue=residual_epilogue, residual=y)
+
+
+def _proj_mlp(o, attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2, eps, gelu_tanh):
+    y, ln2y = _proj_ln(o, attn, x, wproj, bproj, ln2_g, ln2_b, eps)
+    return _mlp(o, ln2y, y, w1, b1, w2, b2, gelu_tanh, "res_bf16")
+
+
+def _mlp_blocked(o, ln2y, y, w1, b1, w2, b2, gelu_tanh):
+    return _mlp(o, ln2y, y, w1, b1, w2, b2, gelu_tanh, "res_f32")
 
 
 def _mlp_args(p):
     return (p["ln2_g"], p["ln2_b"], p["w1"], p["b1"], p["w2"], p["b2"])
 
 
-def _qkv(o, x, p, heads, eps):
-    b, l, _ = x.shape
-    qkv = o.ln_qkv(x, p["ln1_g"], p["ln1_b"], p["wqkv"], p["bqkv"], eps=eps)
-    return qkv.view(b, l, 3, heads, -1)
+# The window block (`_fused_kernel`) and the transition (`_transition_kernel`)
+# are one function each and chain the kernels directly; the global and the
+# split window block call rows 4-7 through `o`, as the JAX package's do.
 
 
 def _window_block(o, x, p, heads, window, eps, scale, gelu_tanh, split):
     b, l, d = x.shape
-    qkv = _qkv(o, x, p, heads, eps)
+    ln1 = (x, p["ln1_g"], p["ln1_b"], p["wqkv"], p["bqkv"])
+    qkv = o.ln_qkv(*ln1, eps=eps) if split else _ln_qkv(o, *ln1, eps)
+    qkv = qkv.view(b, l, 3, heads, -1)
     attn = o.window(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], window,
                     scale=scale).reshape(b, l, d)
     if split:
         y, ln2y = o.proj_ln(attn, x, p["wproj"], p["bproj"], p["ln2_g"], p["ln2_b"], eps=eps)
         return o.mlp_blocked(ln2y, y, p["w1"], p["b1"], p["w2"], p["b2"], gelu_tanh=gelu_tanh)
-    return o.proj_mlp(attn, x, p["wproj"], p["bproj"], *_mlp_args(p), eps=eps,
-                      gelu_tanh=gelu_tanh)
+    return _proj_mlp(o, attn, x, p["wproj"], p["bproj"], *_mlp_args(p), eps, gelu_tanh)
 
 
 def _global_block(o, x, p, heads, eps, scale, gelu_tanh):
     b, l, d = x.shape
-    qkv = _qkv(o, x, p, heads, eps)
+    qkv = o.ln_qkv(x, p["ln1_g"], p["ln1_b"], p["wqkv"], p["bqkv"], eps=eps)
+    qkv = qkv.view(b, l, 3, heads, -1)
     attn = o.flash(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], scale=scale).reshape(b, l, d)
     return o.proj_mlp(attn, x, p["wproj"], p["bproj"], *_mlp_args(p), eps=eps,
                       gelu_tanh=gelu_tanh)
@@ -297,15 +284,15 @@ def _transition(o, x, p, heads, ws, eps, scale, gelu_tanh):
     b, l_in, _ = x.shape
     c_out = p["wproj"].shape[0]
     l_out = l_in // 4
-    proj = o.ln_qkv(x, p["ln1_g"], p["ln1_b"], p["wproj"], p["bproj"], eps=eps)
-    shortcut = o.pool(proj, ws)
-    qkv = o.ln_qkv(x, p["ln1_g"], p["ln1_b"], p["wqkv"], p["bqkv"], eps=eps)
+    ln1 = o.layer_norm(x, p["ln1_g"], p["ln1_b"], eps)
+    shortcut = o.pool(o.gemm(ln1, p["wproj"], p["bproj"]), ws)
+    qkv = o.gemm(ln1, p["wqkv"], p["bqkv"])
     q = o.pool(qkv[:, :, :c_out], ws).view(b, l_out, heads, -1)
     kv = qkv.view(b, l_in, 3, heads, -1)
     attn = o.window(q, kv[:, :, 1], kv[:, :, 2], ws * ws, q_window=ws * ws // 4,
                     scale=scale).reshape(b, l_out, c_out)
-    return o.proj_mlp(attn, shortcut, p["wattn"], p["battn"], *_mlp_args(p), eps=eps,
-                      gelu_tanh=gelu_tanh)
+    return _proj_mlp(o, attn, shortcut, p["wattn"], p["battn"], *_mlp_args(p), eps,
+                     gelu_tanh)
 
 
 _PLAIN = SimpleNamespace(

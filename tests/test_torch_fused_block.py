@@ -229,3 +229,48 @@ def test_cpu_tensors_launch_no_fused_kernel():
         f.launches, f.shapes = 2, {("k",): [2, None]}
     tatt.reset_launches()
     assert all(f.launches == 0 and f.shapes == {} for f in wrappers)
+
+
+def _counting_ops():
+    """The plain operation table with a count of each operation's calls."""
+    from types import SimpleNamespace
+
+    counts = {}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    ops = SimpleNamespace(**{k: counted(k, v) for k, v in vars(tfb._PLAIN).items()})
+    return ops, counts
+
+
+@pytest.mark.parametrize("kind,want", [
+    # one LayerNorm before each pair of products; the window block chains
+    # the kernels itself (one Pallas kernel), the global and split blocks
+    # call rows 4-7 (which the table's plain versions then compute)
+    ("window", {"layer_norm": 2, "gemm": 4, "window": 1}),
+    ("global", {"ln_qkv": 1, "flash": 1, "proj_mlp": 1}),
+    ("split", {"ln_qkv": 1, "window": 1, "proj_ln": 1, "mlp_blocked": 1}),
+    # LN1 once for both the shortcut's and the qkv product
+    ("transition", {"layer_norm": 2, "gemm": 5, "pool": 2, "window": 1}),
+])
+def test_block_chains(kind, want):
+    ops, counts = _counting_ops()
+    tr = kind == "transition"
+    _, _, tx, tp = _inputs("f32", 24, (1, 4 * WS * WS, C_IN if tr else D),
+                           _params(25, C_IN if tr else D, D, transition=tr))
+    if kind == "transition":
+        out = tfb._transition(ops, tx, tp, H, WS, 1e-6, 0.25, True)
+        ref = tfb.reference_transition(tx, tp, num_heads=H, ws=WS, scale=0.25)
+    elif kind == "global":
+        out = tfb._global_block(ops, tx, tp, H, 1e-6, 0.25, True)
+        ref = tfb.reference_global_block(tx, tp, num_heads=H, scale=0.25)
+    else:
+        split = kind == "split"
+        out = tfb._window_block(ops, tx, tp, H, W, 1e-6, 0.25, True, split)
+        ref = tfb.reference_block(tx, tp, num_heads=H, window=W, scale=0.25, split=split)
+    assert counts == want
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)

@@ -149,30 +149,26 @@ def _linear_params(rng, n, k, dev):
     return w.contiguous(), _bf16(rng, (n,), dev) * 0.1
 
 
-# (m, n, k, ln): K = 144 (9*16, not a multiple of 32), N not a power of two,
-# M off the 128-row tile; the widest K and N of Hiera-L (the LayerNorm
-# prologue only where the blocks use it, K <= 1152)
-GEMM_SHAPES = [(m, n, k, ln) for m, n, k in [(300, 432, 144), (1000, 144, 288),
-                                             (257, 1728, 576), (130, 4608, 1152),
-                                             (128, 1152, 4608)]
-               for ln in (False, True) if k <= 1152 or not ln]
+# (m, n, k): K = 144 (9*16, not a multiple of 32), N not a power of two, M
+# off the 128-row tile; the widest K and N of Hiera-L
+GEMM_SHAPES = [(300, 432, 144), (1000, 144, 288), (257, 1728, 576), (130, 4608, 1152),
+               (128, 1152, 4608)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,ln", GEMM_SHAPES)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
 @pytest.mark.parametrize("epilogue", ["bias", "gelu_tanh", "gelu_erf", "res_bf16", "res_f32"])
-def test_gemm_matches_plain(dev, m, n, k, ln, epilogue):
+def test_gemm_matches_plain(dev, m, n, k, epilogue):
     from rga3_tpu_torch.ops import fused_block as fb
 
     rng = np.random.default_rng(m + n + k)
     a = _bf16(rng, (m, k), dev)
     w, bias = _linear_params(rng, n, k, dev)
-    lnp = (1 + 0.1 * _bf16(rng, (k,), dev), 0.1 * _bf16(rng, (k,), dev), 1e-6) if ln else None
     res = _bf16(rng, (m, n), dev) if epilogue.startswith("res") else None
     tatt.reset_launches()
-    out = fb.gemm(a, w, bias, ln=lnp, epilogue=epilogue, residual=res)
+    out = fb.gemm(a, w, bias, epilogue=epilogue, residual=res)
     assert fb.gemm.launches == 1
-    ref = fb.gemm_reference(a, w, bias, ln=lnp, epilogue=epilogue, residual=res)
+    ref = fb.gemm_reference(a, w, bias, epilogue=epilogue, residual=res)
     assert out.shape == ref.shape == (m, n) and torch.isfinite(out).all()
     assert _rel_err(out, ref) < TOL
 
@@ -238,6 +234,7 @@ def test_fused_blocks_match_plain(dev, kind, d, h, window):
     rng = np.random.default_rng(d)
     x = _bf16(rng, (2, 1024, d), dev)
     p = _block_params(rng, d, d, 4 * d, dev)
+    tatt.reset_launches()
     if kind == "global":
         out = fb.fused_global_block(x, p, num_heads=h)
         ref = fb.reference_global_block(x, p, num_heads=h)
@@ -246,6 +243,12 @@ def test_fused_blocks_match_plain(dev, kind, d, h, window):
         out = wrapper(x, p, num_heads=h, window=window)
         ref = fb.reference_block(x, p, num_heads=h, window=window, split=kind == "split")
     assert torch.isfinite(out).all() and _rel_err(out, ref) < TOL
+    # rows 4-7 are launched on their own by the global and split blocks only,
+    # as in the JAX package; every block runs two LayerNorms and four products
+    rows = {"window": (0, 0, 0, 0), "global": (1, 1, 0, 0), "split": (1, 0, 1, 1)}[kind]
+    assert (fb.ln_qkv.launches, fb.proj_mlp.launches, fb.proj_ln.launches,
+            fb.mlp_blocked.launches) == rows
+    assert (fb.layer_norm.launches, fb.gemm.launches) == (2, 4)
 
 
 @pytest.mark.cuda
@@ -257,9 +260,14 @@ def test_transition_block_matches_plain(dev, c_in, ws, h):
     d = 2 * c_in
     x = _bf16(rng, (2, 4 * ws * ws, c_in), dev)
     p = _block_params(rng, c_in, d, 4 * d, dev, transition=True)
+    tatt.reset_launches()
     out = fb.fused_transition_block(x, p, num_heads=h, ws=ws)
     ref = fb.reference_transition(x, p, num_heads=h, ws=ws)
     assert out.shape == (2, ws * ws, d) and _rel_err(out, ref) < TOL
+    # LN1 once for both products, the pool on the shortcut and on q; no
+    # row 4-7 wrapper of its own
+    assert (fb.layer_norm.launches, fb.gemm.launches, fb.window_pool2x2.launches) == (2, 5, 2)
+    assert fb.ln_qkv.launches == fb.proj_mlp.launches == 0
 
 
 @pytest.mark.cuda
@@ -278,15 +286,16 @@ def test_fused_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # a residual epilogue without its residual's shape
         fb.gemm(_bf16(rng, (16, 32), dev), w, bias, epilogue="res_bf16",
                 residual=_bf16(rng, (16, 32), dev))
-    with pytest.raises(ValueError):  # a LayerNorm prologue over rows wider than 1280
-        w_wide, b_wide = _linear_params(rng, 64, 1288, dev)
-        fb.gemm(_bf16(rng, (16, 1288), dev), w_wide, b_wide,
-                ln=(torch.ones(1288, device=dev), torch.zeros(1288, device=dev), 1e-6))
+    with pytest.raises(TypeError):  # an f32 bias
+        fb.gemm(_bf16(rng, (16, 32), dev), w, bias.float())
     with pytest.raises(ValueError):  # odd window side
         fb.window_pool2x2(_bf16(rng, (1, 9, 16), dev), 3)
+    g12 = torch.ones(12, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # layer norm width not a multiple of 8
-        fb.layer_norm(_bf16(rng, (4, 12), dev), torch.ones(12, device=dev),
-                      torch.zeros(12, device=dev), 1e-6)
+        fb.layer_norm(_bf16(rng, (4, 12), dev), g12, g12 - 1, 1e-6)
+    with pytest.raises(TypeError):  # f32 gamma and beta
+        fb.layer_norm(_bf16(rng, (4, 16), dev), torch.ones(16, device=dev),
+                      torch.zeros(16, device=dev), 1e-6)
     q = _bf16(rng, (1, 32, 2, 72), dev)
     k = _bf16(rng, (1, 64, 2, 72), dev)
     with pytest.raises(ValueError):  # q windows neither window nor window / 4
