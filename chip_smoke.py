@@ -15,21 +15,34 @@ Phases, each timed on its own line:
      counts and the calls they saw are reset just before the first call and
      read just after it; each kernel must have been launched, and the fused
      Hiera wrappers as often as Hiera-L's blocks say;
-  4. plain route: the same LLM forward and one SAM chunk with attention and
+  4. chat: `UniGRChat.answer` on the same video with the same bf16 weights
+     (the float LM, a bf16 KV cache, 64 new tokens), then on an int4 serving
+     copy of the Qwen2.5-VL weights (`quantize_for_serving(..., "int4")` on
+     the card: int4 LM, int8 vision tower) cold, warm and traced, and one
+     `answer_batch` of 4 questions; int4_matmul must be launched 197 times a
+     forward (28 layers x 7 projections + lm_head). KV-cached decode is held
+     against one forward without a cache over the prompt and the generated
+     tokens; then one answer with the int8 options (int8 LM and tower, W8A8
+     prefill, int8 KV cache). Each chat path is a path of its own: counts
+     reset before its cold call and read after it;
+  5. plain route: the same LLM forward and one SAM chunk with attention and
      the fused blocks routed to the plain versions, on the same weights; then
      the earlier unfused Hiera path (`unfused(cfg)`) on the
      same weights, its own launches counted, against the fused route, and
      the two routes' SAM encode of one chunk timed in six alternating pairs;
-  5. kernels: each hand-written kernel, and each fused-block wrapper built
-     from them, against its plain PyTorch version at every call the main
-     path made (shapes, strides, options, segment ids; bf16 inputs; per
+  6. kernels: each hand-written kernel, and each fused-block wrapper built
+     from them, against its plain PyTorch version at every call the paths
+     made (shapes, strides, options, segment ids; bf16 inputs; per
      output row within ROW_TOL of the row's max|plain|), with its time, its
      bound, the plain version's time and the time of the same function
      composed of PyTorch library calls (`scaled_dot_product_attention`,
-     `linear`, `layer_norm`, `gelu`, `max_pool2d`: a yardstick only, the port
+     `linear`, `layer_norm`, `gelu`, `max_pool2d`; for int4_matmul `linear`
+     on the weight dequantized to bf16 once: a yardstick only, the port
      never calls them);
-  6. reference: a small model with the fused Hiera routes (and the split
-     window block) on the card against the same model in f32 on the CPU.
+  7. reference: a small model with the fused Hiera routes (and the split
+     window block) on the card against the same model in f32 on the CPU,
+     and a small int4 chat on the card against the same quantized model on
+     the CPU (prefill and teacher-forced decode logits).
 
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -38,6 +51,8 @@ a CUDA device, or outside the repository, the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import copy
+import itertools
 import json
 import os
 import statistics
@@ -55,6 +70,16 @@ REPS = 10  # timed launches per kernel shape, after one warm-up
 ENCODE_PAIRS = 6  # fused/unfused SAM encodes timed in turns
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+L2_ROTATE_BYTES = 100e6  # twice the H100's 50 MB L2: weights timed from device memory
+CHAT_TOKENS = 64  # max_new_tokens of the chat phase
+EOS, PAD = 151645, 151643
+# the chat's logits against the same model's forward without a cache, per
+# step: bf16 weights and activations, the cached decode in f32 einsums over
+# a bf16 cache and the forward through the flash kernel round at different
+# places, about one bf16 ulp (2^-8..2^-7) of the largest logit per layer
+# output; a decode that read a wrong cache slot is off by the order of the
+# logits themselves
+CHAT_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -102,10 +127,32 @@ def row_rel_err(out, ref, rows):
     return (diff / scale)[rows].max().item(), diff[rows].max().item()
 
 
+def plain_flash(q, k, v, kw):
+    """`mha_reference`, over query rows in chunks of ~2 GiB of f32 logits
+    when the call is not causal (the vision tower's full attention over
+    four videos would need ~22 GiB at once); each chunk attends to every
+    key, so the function is the same."""
+    from rga3_tpu_torch.ops.attention import mha_reference
+
+    b, lq, h, _ = q.shape
+    step = max(64, (1 << 29) // (b * h * k.shape[1]))
+    if kw["causal"] or lq <= step:
+        return mha_reference(q, k, v, **kw)
+    import torch
+
+    seg = kw["segment_ids"]
+    kv_seg = kw["kv_segment_ids"] if kw["kv_segment_ids"] is not None else seg
+    return torch.cat([
+        mha_reference(q[:, i:i + step], k, v, scale=kw["scale"],
+                      segment_ids=None if seg is None else seg[:, i:i + step],
+                      kv_segment_ids=kv_seg)
+        for i in range(0, lq, step)], 1)
+
+
 def check_flash(key, segs, gen, reps):
     import torch
     import torch.nn.functional as F
-    from rga3_tpu_torch.ops.attention import flash_attention, mha_reference
+    from rga3_tpu_torch.ops.attention import flash_attention
 
     qshape, qstride, kshape, kstride, vstride, causal, scale = key
     b, lq, h, d = qshape
@@ -116,7 +163,7 @@ def check_flash(key, segs, gen, reps):
     qseg, kseg = segs if segs is not None else (None, None)
     kw = dict(causal=causal, segment_ids=qseg, kv_segment_ids=kseg, scale=scale)
     out = flash_attention(q, k, v, **kw)
-    ref = mha_reference(q, k, v, **kw)
+    ref = plain_flash(q, k, v, kw)
     # the (q, k) pairs this call's masks allow: rows with none are only
     # checked for being finite (the kernel follows the TPU kernel's rule there)
     allowed = None
@@ -136,18 +183,16 @@ def check_flash(key, segs, gen, reps):
     if rel > ROW_TOL:
         raise AssertionError(f"flash {qshape}: row error {rel} > {ROW_TOL} of max|ref|")
     ms = time_ms(lambda: flash_attention(q, k, v, **kw), reps)
-    plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw), max(2, reps // 4))
+    plain_ms = time_ms(lambda: plain_flash(q, k, v, kw), max(2, reps // 4))
+    del ref
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_kw = {"enable_gqa": True} if hkv != h else {}
     if qseg is not None and bool((qseg != qseg[0, 0]).any() or (kseg != qseg[0, 0]).any()):
         lib_kw["attn_mask"] = allowed[:, None]
     else:
         lib_kw["is_causal"] = causal
-    try:
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, scale=scale, **lib_kw), reps)
-    except TypeError:  # a torch without enable_gqa: no one-call yardstick
-        lib_ms = None
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=scale, **lib_kw), reps)
     flops = 4.0 * h * d * pairs
     nbytes = 2.0 * (2 * b * lq * h * d + 2 * b * lk * hkv * d)
     if qseg is not None:
@@ -480,6 +525,60 @@ def check_transition(key, _extra, gen, reps):
                    flops, nbytes, reps)
 
 
+def time_graph(make_fn, copies, reps):
+    """Device ms per call of `make_fn(copy)`, cycling over `copies` (so that
+    each call reads operands the previous calls pushed out of the L2
+    cache), from replays of a CUDA graph of the calls: launched one by one,
+    a call costs the host tens of µs, more than a decode-shaped kernel runs,
+    and the events would time the host."""
+    import torch
+
+    n = len(copies) * -(-reps // len(copies))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        for c in copies:
+            make_fn(c)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in itertools.islice(itertools.cycle(copies), n):
+            make_fn(c)
+    ms = time_ms(graph.replay, 3) / n
+    del graph
+    return ms
+
+
+def check_int4(key, _extra, gen, reps):
+    import torch
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import quant as tq
+
+    m, in_dim, out = key
+    q, s = tq.quantize_int4(rand((in_dim, out), gen, 0.02))
+    x = rand((m, in_dim), gen)
+    y, ref = tq.int4_matmul(x, q, s), tq.int4_matmul_reference(x, q, s)
+    if y.shape != ref.shape or not torch.isfinite(y).all():
+        raise AssertionError(f"int4_matmul {key}: output non-finite or of the wrong shape")
+    rel, err = row_rel_err(y, ref, torch.ones(m, dtype=torch.bool, device="cuda"))
+    if rel > ROW_TOL:
+        raise AssertionError(f"int4_matmul {key}: row error {rel} > {ROW_TOL} of max|ref|")
+    wbytes = q.numel() + 4 * s.numel()
+    copies = [(q, s)] + [(q.clone(), s.clone())
+                         for _ in range(min(63, int(L2_ROTATE_BYTES // wbytes)))]
+    ms = time_graph(lambda qs: tq.int4_matmul(x, *qs), copies, reps)
+    plain_ms = time_graph(lambda qs: tq.int4_matmul_reference(x, *qs), copies[:1],
+                          max(2, reps // 4))
+    del copies
+    wd = tq.dequantize_int4(q, s).t().contiguous().bfloat16()
+    lib_copies = [wd] + [wd.clone() for _ in range(min(15, int(L2_ROTATE_BYTES // (2 * wd.numel()))))]
+    lib_ms = time_graph(lambda w: F.linear(x, w), lib_copies, reps)
+    del lib_copies, wd
+    nbytes = 2.0 * m * in_dim + wbytes + 2.0 * m * out
+    return dict(desc=f"M={m} in={in_dim} out={out}", err=err, rel=rel, ms=ms,
+                plain_ms=plain_ms, lib_ms=lib_ms, bound=bound(2.0 * m * in_dim * out, nbytes))
+
+
 # name, check, source, the TPU kernel it replaces
 FUSED = "rga3_tpu/ops/fused_block.py"
 KERNELS = (
@@ -502,7 +601,10 @@ KERNELS = (
      f"{FUSED}:694"),
     ("fused_transition_block", check_transition, "rga3_tpu_torch/ops/fused_block.py",
      f"{FUSED}:917"),
+    ("int4_matmul", check_int4, "rga3_tpu_torch/csrc/int4_matmul.cu",
+     "rga3_tpu/ops/quant.py:159"),
 )
+SEGMENT_KERNELS = tuple(name for name, *_ in KERNELS if name != "int4_matmul")
 # launches of the fused block wrappers in one 8-frame call: Hiera-L's
 # windowed blocks at widths <= 576 (stages 1-3: 2 + 5 + 32), its global
 # blocks (23, 33, 43), its stage-4 windowed blocks and its q-pool blocks
@@ -573,6 +675,242 @@ def small_reference(seed: int) -> None:
         raise AssertionError("small reference: the card disagrees with the CPU")
 
 
+def teacher_forced_logits(model, inputs, tokens):
+    """(B, steps, V) f32 logits of `model` on the prompt `inputs` (as
+    `UniGRChat.prepare` gives them) followed by `tokens`, through a fresh
+    KV cache: the prefill's head on each row's last prompt position, then
+    one one-token decode step per token but the last."""
+    import torch
+    from rga3_tpu_torch.models.qwen25vl.language import make_kv_cache
+
+    dev = model.device
+    ids, mask = inputs["input_ids"].to(dev), inputs["attention_mask"].to(dev)
+    b, l = ids.shape
+    n = tokens.shape[1]
+    cache = make_kv_cache(model.cfg.text, b, l + n, dtype=model.dtype, device=dev)
+    pp = inputs["pixel_patches"]
+    with torch.no_grad():
+        out = model(ids, position_ids=inputs["position_ids"].to(dev),
+                    segment_ids=mask.int(), pixel_patches=None if pp is None else pp.to(dev),
+                    vision_layout=inputs["vision_layout"], cache=cache,
+                    logits_indices=mask.sum(1) - 1)
+        steps = [out["logits"][:, 0].float()]
+        next_pos = mask.sum(1) + inputs["rope_deltas"].to(dev)
+        for i in range(n - 1):
+            pos = (next_pos + i)[None, :, None].expand(3, b, 1)
+            out = model(tokens[:, i:i + 1].to(dev), position_ids=pos, cache=cache)
+            steps.append(out["logits"][:, -1].float())
+    return torch.stack(steps, 1)
+
+
+def small_chat_reference(seed: int) -> None:
+    """A tiny int4 serving model (int4 LM, int8 tower) on the card in bf16
+    against the same quantized model in f32 on the CPU: prefill and
+    teacher-forced decode logits, per step within CHAT_TOL of max|logit|."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.data.processor import QwenVLProcessor
+    from rga3_tpu_torch.evaluation.segmentor import UniGRChat
+    from rga3_tpu_torch.models.qwen25vl import tiny_config
+    from rga3_tpu_torch.models.qwen25vl.generate import greedy_generate
+    from rga3_tpu_torch.models.qwen25vl.model import Qwen25VL
+    from rga3_tpu_torch.ops.quant import int4_matmul, quantize_for_serving
+
+    proc = QwenVLProcessor.from_pretrained(
+        "dummy", min_pixels=4 * 28 * 28, max_pixels=64 * 28 * 28,
+        video_max_pixels=64 * 28 * 28)
+    cpu = Qwen25VL(tiny_config(152_000), device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif name.endswith("weight") and p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.1, generator=gen)
+    quantize_for_serving(cpu, "int4")
+    gpu = Qwen25VL(cpu.cfg, device="cuda", dtype=torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(seed)
+    frames = [rng.integers(0, 256, (112, 168, 3), dtype=np.uint8) for _ in range(2)]
+    chat = UniGRChat(cpu, proc, max_new_tokens=8)
+    inputs = chat.prepare([chat.encode("What is shown in this video?", frames)])
+    kw = dict(max_new_tokens=8, eos_token_id=EOS, pad_token_id=PAD)
+    toks_c, lg_c = greedy_generate(cpu, **inputs, return_logits=True, **kw)
+    before = int4_matmul.launches
+    lg_g = teacher_forced_logits(gpu, inputs, toks_c[:, :lg_c.shape[1]])
+    toks_g = greedy_generate(gpu, **inputs, **kw)
+    launched = int4_matmul.launches - before
+    rel = ((lg_g.cpu() - lg_c).abs().amax(-1) / lg_c.abs().amax(-1)).max().item()
+    log(f"small chat reference (tiny int4 serving model, bf16 on the card vs f32 on the "
+        f"CPU, teacher-forced): logits max err / max|logit| {rel:.3e} over "
+        f"{lg_c.shape[1]} steps; int4_matmul launches {launched}; greedy tokens CPU "
+        f"{toks_c[0].tolist()} card {toks_g[0].tolist()}")
+    if not (rel < CHAT_TOL and launched > 0 and torch.isfinite(lg_g).all()):
+        raise AssertionError("small chat reference: the card disagrees with the CPU")
+
+
+def int4_lm_bytes(model) -> int:
+    """Bytes of the int4 LM's packed weights and scales: what one decode
+    step must read at the least."""
+    from rga3_tpu_torch.models.qwen25vl.language import QuantLinear
+
+    return sum(m.kernel_q4.numel() + 4 * m.scale_g.numel()
+               for m in model.modules() if isinstance(m, QuantLinear) and m.bits == 4)
+
+
+def log_chat(label: str, chat, wall: float) -> float:
+    """Log a chat call's prefill, tokens and decode ms per token; return the
+    ms per token."""
+    st = chat.last_stats
+    steps = max(1, st["forwards"] - 1)
+    ms_tok = st["decode_s"] * 1e3 / steps
+    log(f"chat {label}: {wall:.3f} s; prefill {st['prefill_s']:.4f} s; "
+        f"{st['forwards']} tokens chosen ({st['forwards']} forwards); decode "
+        f"{st['decode_s']:.4f} s, {ms_tok:.3f} ms per token")
+    return ms_tok
+
+
+def chat_phase(model, proc, frames, read_path) -> dict:
+    """Phase 4 on the bf16 UniGR `model`: float chat, the int4 serving copy
+    (cold with its launches asserted, warm, traced, answer_batch of 4), the
+    cache check and the int8 options. Returns the chat paths' (launches,
+    calls), each read by `read_path()` right after its cold call."""
+    import torch
+    from rga3_tpu_torch.evaluation.segmentor import UniGRChat
+    from rga3_tpu_torch.models.qwen25vl.generate import greedy_generate
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.ops.quant import quantize_for_serving, set_config_flags
+
+    dev = model.device
+    paths = {}
+    question = "What is happening in this video? Describe it in detail."
+    chat = UniGRChat(model, proc, max_new_tokens=CHAT_TOKENS)
+    reset_launches()
+    t1 = time.perf_counter()
+    answer = chat.answer(question, video_frames=frames)
+    paths["chat_float"] = read_path()
+    log_chat("float (bf16 weights, bf16 KV cache), cold", chat, time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    chat.answer(question, video_frames=frames)
+    float_ms_tok = log_chat("float, warm", chat, time.perf_counter() - t1)
+    log(f"chat float: answer of {len(answer.split())} words; launches "
+        f"{ {k: n for k, n in paths['chat_float'][0].items() if n} }")
+    if paths["chat_float"][0]["flash_attention"] <= 0:
+        raise AssertionError("float chat: flash_attention was not launched")
+    inputs = chat.prepare([chat.encode(question, video_frames=frames)])
+    gkw = dict(max_new_tokens=CHAT_TOKENS, eos_token_id=EOS, pad_token_id=PAD)
+    # the float prefill's logits, against which the quantized models' are logged
+    _, float_steps = greedy_generate(model.qwen, **inputs, return_logits=True,
+                                     **{**gkw, "max_new_tokens": 1})
+
+    t1 = time.perf_counter()
+    qwen4 = quantize_for_serving(copy.deepcopy(model.qwen), "int4")
+    torch.cuda.synchronize()
+    lm_bytes = int4_lm_bytes(qwen4)
+    tok_bound_ms = lm_bytes / PEAK_BYTES * 1e3
+    log(f"int4 serving copy (int4 LM, int8 vision tower), quantized on the card in "
+        f"{time.perf_counter() - t1:.2f} s; int4 LM weights + scales {lm_bytes / 1e9:.3f} GB, "
+        f"a decode step's bound {tok_bound_ms:.3f} ms at {PEAK_BYTES / 1e12} TB/s")
+    chat4 = UniGRChat(qwen4, proc, max_new_tokens=CHAT_TOKENS)
+    per_forward = 7 * qwen4.cfg.text.num_hidden_layers + 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    answer4 = chat4.answer(question, video_frames=frames)
+    paths["chat_int4"] = read_path()
+    log_chat("int4 serving, cold", chat4, time.perf_counter() - t1)
+    forwards = chat4.last_stats["forwards"]
+    n4 = paths["chat_int4"][0]["int4_matmul"]
+    log(f"chat int4: answer of {len(answer4.split())} words; int4_matmul launches {n4} = "
+        f"{per_forward} x {forwards} forwards; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the bf16 UniGR included); "
+        f"launches { {k: n for k, n in paths['chat_int4'][0].items() if n} }")
+    if n4 != per_forward * forwards or paths["chat_int4"][0]["flash_attention"] <= 0:
+        raise AssertionError(f"int4 chat: {n4} int4_matmul launches for {forwards} forwards")
+    t1 = time.perf_counter()
+    chat4.answer(question, video_frames=frames)
+    warm4 = time.perf_counter() - t1
+    ms_tok = log_chat("int4 serving, warm", chat4, warm4)
+    log(f"chat int4: {ms_tok:.3f} ms per token against the {tok_bound_ms:.3f} ms bound "
+        f"({tok_bound_ms / ms_tok:.3f} of it); float {float_ms_tok:.3f} ms per token")
+    # the trace's post-processing grows with its events: trace a 16-token
+    # answer, against the same answer untraced
+    chat16 = UniGRChat(qwen4, proc, max_new_tokens=16)
+    t1 = time.perf_counter()
+    chat16.answer(question, video_frames=frames)
+    warm16 = time.perf_counter() - t1
+    log_chat("int4 serving, 16 new tokens, warm", chat16, warm16)
+    busy = device_breakdown(lambda: chat16.answer(question, video_frames=frames))
+    log(f"profile (int4 chat, 16 new tokens): device busy in the traced call / wall of the "
+        f"untraced warm call: {busy:.1f} / {warm16 * 1e3:.1f} ms = {busy / (warm16 * 1e3):.3f}")
+    questions = [question, "What color is the largest object?",
+                 "How many people are visible?", "Where is the camera pointing?"]
+    reset_launches()
+    t1 = time.perf_counter()
+    answers = chat4.answer_batch(questions, video_frames_list=[frames] * 4)
+    paths["chat_int4_batch4"] = read_path()
+    log_chat("int4 serving, answer_batch of 4", chat4, time.perf_counter() - t1)
+    batch_launches = paths["chat_int4_batch4"][0]
+    if len(answers) != 4 or batch_launches["flash_attention"] <= 0 or (
+            batch_launches["int4_matmul"] != per_forward * chat4.last_stats["forwards"]):
+        raise AssertionError("int4 answer_batch: wrong answers or launches")
+
+    # KV-cached decode against one forward without a cache over the prompt
+    # and the tokens it chose (pads segment 0; decode positions next_pos + i)
+    toks, steps = greedy_generate(qwen4, **inputs, return_logits=True, **gkw)
+    n = steps.shape[1]
+    ids, mask = inputs["input_ids"].to(dev), inputs["attention_mask"].to(dev)
+    lens = mask.sum(1)
+    full = torch.cat([ids, toks[:, :n - 1]], 1)
+    segs = torch.cat([mask, torch.ones_like(toks[:, :n - 1])], 1)
+    gen_pos = (lens + inputs["rope_deltas"].to(dev))[:, None] + torch.arange(n - 1, device=dev)
+    fpos = torch.cat([inputs["position_ids"].to(dev), gen_pos[None].expand(3, 1, n - 1)], 2)
+    with torch.no_grad():
+        nocache = qwen4(full, position_ids=fpos, segment_ids=segs,
+                        pixel_patches=inputs["pixel_patches"].to(dev),
+                        vision_layout=inputs["vision_layout"])["logits"][0].float()
+    at = torch.cat([lens - 1, ids.shape[1] + torch.arange(n - 1, device=dev)])
+    rows = nocache[at]
+    scale = rows.abs().amax(-1)
+    err = (steps[0] - rows).abs().amax(-1) / scale
+    top2 = rows.topk(2, -1).values
+    decided = (top2[:, 0] - top2[:, 1]) > CHAT_TOL * scale
+    agree = (toks[0, :n] == rows.argmax(-1))[decided]
+    log(f"cache check (int4, {n} steps): decode logits vs no-cache forward, max err / "
+        f"max|logit| {err.max().item():.3e} (tol {CHAT_TOL}); tokens equal to the no-cache "
+        f"argmax at {int(agree.sum())} of {int(decided.sum())} steps whose top-2 margin "
+        f"exceeds the tolerance")
+    if not (err.max().item() <= CHAT_TOL and bool(agree.all())):
+        raise AssertionError("KV-cached decode disagrees with the forward without a cache")
+    rel4 = ((steps[0, 0] - float_steps[0, 0]).abs().max() / float_steps[0, 0].abs().max()).item()
+    log(f"int4 vs float prefill logits (same weights, quantized): max err / max|logit| {rel4:.3e}")
+    del qwen4, chat4, chat16, nocache, rows, steps
+    torch.cuda.empty_cache()
+
+    # the int8 options: int8 LM and tower, W8A8 prefill, int8 KV cache
+    t1 = time.perf_counter()
+    qwen8 = copy.deepcopy(model.qwen)
+    set_config_flags(qwen8, {"quant_w8a8": True, "kv_cache_int8": True}, {"quant_w8a8": True})
+    quantize_for_serving(qwen8, "int8")
+    chat8 = UniGRChat(qwen8, proc, max_new_tokens=16)
+    chat8.answer(question, video_frames=frames)
+    log_chat("int8 options (int8 LM + tower, W8A8 prefill, int8 KV cache), cold", chat8,
+             time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    _, steps8 = greedy_generate(qwen8, **{**gkw, "max_new_tokens": 16}, **inputs,
+                                return_logits=True)
+    rel8 = ((steps8[0, 0] - float_steps[0, 0]).abs().max() / float_steps[0, 0].abs().max()).item()
+    log(f"int8 options vs float prefill logits: max err / max|logit| {rel8:.3e}; "
+        f"16-token generate {time.perf_counter() - t1:.3f} s")
+    if not torch.isfinite(steps8).all():
+        raise AssertionError("int8 options: non-finite logits")
+    del qwen8, chat8, steps8, float_steps
+    torch.cuda.empty_cache()
+    return paths
+
+
 def device_breakdown(run, top: int = 20) -> float:
     """Run `run()` under torch.profiler, print the device time by kernel
     name and the host wall time around it, and return the device busy ms
@@ -635,6 +973,7 @@ def main() -> int:
     from rga3_tpu_torch.ops.attention import (
         flash_attention, reset_launches, set_plain_attention, window_attention,
     )
+    from rga3_tpu_torch.ops.quant import int4_matmul
 
     t_all = time.perf_counter()
     # ---- 1. device
@@ -689,12 +1028,19 @@ def main() -> int:
     masks = seg.segment_video_multi(frames, expressions)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    wrappers = {"flash_attention": flash_attention, "window_attention": window_attention}
-    wrappers.update((name, getattr(fb, name)) for name, *_ in KERNELS[2:])
-    launches = {k: f.launches for k, f in wrappers.items()}
-    # a snapshot: the calls after this one add to the wrappers' records
-    calls = {k: {key: tuple(rec) for key, rec in f.shapes.items()}
-             for k, f in wrappers.items()}
+    wrappers = {"flash_attention": flash_attention, "window_attention": window_attention,
+                "int4_matmul": int4_matmul}
+    wrappers.update((name, getattr(fb, name)) for name in SEGMENT_KERNELS[2:])
+
+    def read_path():
+        """(launches, calls) of every wrapper since the last reset: a
+        snapshot, since later calls add to the wrappers' records."""
+        return ({k: f.launches for k, f in wrappers.items()},
+                {k: {key: tuple(rec) for key, rec in f.shapes.items()}
+                 for k, f in wrappers.items()})
+
+    launches, calls = read_path()
+    paths = {"segment_video_multi": (launches, calls)}
     log(f"main path: segment_video_multi {wall:.3f} s; phases (s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in seg.phase_seconds.items()))
     log(f"main path: masks {masks.shape} {masks.dtype}, foreground {masks.mean():.4f}; "
@@ -703,8 +1049,8 @@ def main() -> int:
         + ", ".join(f"{k} {len(v)}" for k, v in calls.items()))
     if masks.shape != (len(expressions), n_frames, fh, fw):
         raise AssertionError(f"mask shape {masks.shape}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in SEGMENT_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
     for k, n in HIERA_L_LAUNCHES.items():
         if launches[k] != n:
@@ -724,7 +1070,12 @@ def main() -> int:
         f"of this run: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}")
     log(f"phase main_path: {time.perf_counter() - t0:.2f} s")
 
-    # ---- 4. the plain route, called explicitly, on the same weights
+    # ---- 4. chat: KV-cached decode in float and in int4 serving, same video
+    t0 = time.perf_counter()
+    paths.update(chat_phase(model, proc, frames, read_path))
+    log(f"phase chat: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 5. the plain route, called explicitly, on the same weights
     t0 = time.perf_counter()
     emb_k, has_k = seg._seg_embedding(frames, expressions[0])
     logits_k = seg.decode_logits(seg.encode_frames(frames[:chunk]), emb_k)
@@ -789,19 +1140,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase plain_route: {time.perf_counter() - t0:.2f} s")
 
-    # ---- 5. each kernel against its plain version, at every call the main
-    # path made (shapes, strides, masks and segment ids as recorded)
+    # ---- 6. each kernel against its plain version, at every call the paths
+    # made (shapes, strides, masks and segment ids as recorded); a call's
+    # times count once for each launch of it in each path's run
     t0 = time.perf_counter()
     gen = torch.Generator("cuda").manual_seed(seed)
     kernels = []
     for kname, check, src, replaces in KERNELS:
         tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
-        for key, (n, extra) in calls[kname].items():
+        merged, per_path = {}, {}
+        for pname, (_, pcalls) in paths.items():
+            for key, (n, extra) in pcalls[kname].items():
+                merged.setdefault(key, [0, extra, {}])
+                merged[key][0] += n
+                merged[key][2][pname] = n
+        for key, (n, extra, by_path) in merged.items():
             r = check(key, extra, gen, REPS)
             log(f"kernel {kname} [{r['desc']}]: launches/call {n}, "
                 f"max_abs_err {r['err']:.3e}, row err / max|ref| {r['rel']:.3e} "
                 f"(tol {ROW_TOL}), ms {r['ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
                 f"({r['bound'][1]}), plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}")
+            for pname, pn in by_path.items():
+                per_path[pname] = per_path.get(pname, 0.0) + pn * r["ms"]
             tot["ms"] += n * r["ms"]
             tot["plain_ms"] += n * r["plain_ms"]
             tot["lib_ms"] = (None if tot["lib_ms"] is None or r["lib_ms"] is None
@@ -810,9 +1170,12 @@ def main() -> int:
             if r["bound"][1] == "operations":
                 tot["ops_ms"] += n * r["bound"][0]
             tot["err"] = max(tot["err"], r["err"])
+        total = sum(pl[kname] for pl, _ in paths.values())
+        log(f"kernel {kname}: {total} launches, ms by path: "
+            + ", ".join(f"{p} {paths[p][0][kname]}x {v:.4f}" for p, v in per_path.items()))
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": tot["err"], "ms": tot["ms"],
+            "launches": total, "max_abs_err": tot["err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["ops_ms"] * 2 >= tot["bound_ms"] else "bytes",
             "library_ms": tot["lib_ms"],
@@ -820,14 +1183,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
-    # ---- 6. a small model on the card against the same model on the CPU
+    # ---- 7. small models on the card against the same models on the CPU
     t0 = time.perf_counter()
     small_reference(seed)
+    small_chat_reference(seed)
     log(f"phase reference: {time.perf_counter() - t0:.2f} s")
 
     log(f"total: {time.perf_counter() - t_all:.2f} s")
-    log("kernel ms/plain_ms/bound_ms/library_ms: per segment_video_multi call, "
-        "the per-call times above times their launches")
+    log("kernel launches/ms/plain_ms/bound_ms/library_ms: over one run of each path ("
+        + ", ".join(paths) + "), the per-call times above times their launches")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,12 @@ and only the leaves change:
   * LayerNorm / RMSNorm `scale` -> `weight`; Embed `embedding` -> `weight`;
   * Hiera's `pos_embed` / `pos_embed_window` NHWC -> NCHW;
   * raw parameters (LoRA `q_proj_lora_a` (in, r) / `*_lora_b` (r, out),
-    `no_mem_embed`, the random positional matrix, ...) stay as they are.
+    `no_mem_embed`, the random positional matrix, ...) stay as they are;
+  * quantized Dense leaves (`ops.quant`'s layout, which the port's
+    `QuantLinear` keeps) stay as they are and keep their dtypes:
+    `kernel_q` / `kernel_q4` int8 (in, out) / (in/2, out), untransposed,
+    and `scale` / `scale_g` f32 (a `scale` beside a `kernel_q` is not a
+    norm's). Every other leaf is cast to `dtype`.
 
 Subtrees the ported path does not run yet (the SAM2 memory attention and
 memory encoder, and their positional parameters) are dropped by name; any
@@ -47,9 +52,15 @@ def _flatten(tree: Tree, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
-def _leaf(path: tuple, x: np.ndarray):
-    """(torch leaf name, array in torch layout) for one flax leaf."""
+QUANT_LEAVES = ("kernel_q", "kernel_q4", "scale_g")
+
+
+def _leaf(path: tuple, x: np.ndarray, quantized: bool = False):
+    """(torch leaf name, array in torch layout) for one flax leaf;
+    `quantized`: the leaf belongs to a quantized Dense."""
     name, parent = path[-1], path[-2] if len(path) > 1 else ""
+    if quantized and (name in QUANT_LEAVES or name == "scale"):
+        return name, x
     if any(p.endswith("_scan") for p in path):
         raise ValueError(
             f"{'/'.join(path)}: scanned (stacked) layers are not supported; "
@@ -78,12 +89,21 @@ def torch_state_dict_from_flax(
     if set(params.keys()) == {"params"}:
         params = params["params"]
     out = {}
-    for path, x in _flatten(params).items():
+    flat = _flatten(params)
+    quant = {p[:-1] for p in flat if p[-1] in QUANT_LEAVES}
+    for path, x in flat.items():
         if any(p in SKIPPED for p in path):
             continue
-        name, y = _leaf(path, x)
+        quantized = path[:-1] in quant
+        name, y = _leaf(path, x, quantized)
         key = ".".join(path[:-1] + (name,))
-        out[key] = torch.from_numpy(np.ascontiguousarray(y)).to(dtype)
+        t = torch.from_numpy(np.require(y, requirements=["C", "W"]))
+        if name in ("kernel_q", "kernel_q4"):
+            out[key] = t.to(torch.int8)
+        elif quantized and name in ("scale", "scale_g"):
+            out[key] = t.to(torch.float32)
+        else:
+            out[key] = t.to(dtype)
     return out
 
 

@@ -1,23 +1,27 @@
-"""Referring video segmentation with UniGR, counterpart of
-`UniGRSegmentor` in `rga3_tpu/evaluation/segmentor.py` (its
-`device_preprocess=False` route).
+"""Referring video segmentation and free-form QA with UniGR, counterparts
+of `UniGRSegmentor` (its `device_preprocess=False` route) and `UniGRChat` in
+`rga3_tpu/evaluation/segmentor.py`.
 
 `segment_video_multi`: sparse frames to the MLLM with the teacher-forced
 "... Sure, [SEG]." conversation, the [SEG] hidden state projected to the
 SAM2 prompt, every frame encoded once by SAM2 in chunks, every expression
 decoded against the shared features, bilinear resize to the frame size and
 sigmoid > 0.5.
+
+`UniGRChat.answer` / `answer_batch`: KV-cached greedy decoding of an
+answer to a question about a video, images or text alone.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.processor import ChatMessage, QwenVLProcessor
 from ..data.templates import get_sparse_indices
+from ..models.qwen25vl.generate import greedy_generate
 from ..models.qwen25vl.positions import get_rope_index
 from ..models.qwen25vl.vision import compute_vision_layout, layout_device_args
 from ..models.unigr.model import UniGR
@@ -154,3 +158,122 @@ class UniGRSegmentor:
                 out_masks[ei, start:start + len(sub)] = masks[: len(sub)]
             self.phase_seconds["sam_decode"] += time.perf_counter() - t0
         return out_masks
+
+
+EOS_TOKEN_ID = 151645  # <|im_end|>
+PAD_TOKEN_ID = 151643  # <|endoftext|>
+
+
+class UniGRChat:
+    """Free-form QA (the VideoInfer / VideoRefer / ViP-Bench paths). Takes a
+    `Qwen25VL` or a `UniGR` composite (whose `qwen` it keeps) and runs on
+    its device and dtype. `last_stats` holds the last call's prefill and
+    decode seconds and forward count (`greedy_generate`'s `stats`)."""
+
+    def __init__(self, model, processor: QwenVLProcessor, max_new_tokens: int = 64,
+                 draft_model=None):
+        if draft_model is not None:
+            raise NotImplementedError(
+                "speculative decoding (draft_model) is not ported yet")
+        if not hasattr(model.cfg, "vision"):  # a UniGR composite
+            model = model.qwen
+        self.model = model
+        self.processor = processor
+        self.max_new_tokens = max_new_tokens
+        self.last_stats: Dict[str, float] = {}
+
+    def encode(self, question: str, video_frames=None, images=None):
+        """The processor's output for one question."""
+        content: List[Dict[str, Any]] = []
+        if video_frames is not None:
+            content.append({"type": "video"})
+        for _ in images or []:
+            content.append({"type": "image"})
+        content.append({"type": "text", "text": question})
+        return self.processor(
+            [ChatMessage("user", content)],
+            videos=[video_frames] if video_frames is not None else [],
+            images=[[im] for im in (images or [])],
+            add_generation_prompt=True,
+        )
+
+    def prepare(self, encs, length_bucket: int = 64) -> Dict[str, Any]:
+        """`greedy_generate`'s inputs for processor outputs: the prompts
+        right-padded to a `length_bucket` multiple (pads masked by the
+        attention mask and the cache's key validity), their vision inputs
+        concatenated in order."""
+        qcfg = self.model.cfg
+        lens = [np.asarray(e["input_ids"]).shape[1] for e in encs]
+        lmax = max(lens) + (-max(lens)) % max(length_bucket, 1)
+        ids = np.full((len(encs), lmax), PAD_TOKEN_ID, np.int64)
+        mask = np.zeros((len(encs), lmax), np.int64)
+        grids_i: List = []
+        grids_v: List = []
+        spg: List = []
+        patches: List[np.ndarray] = []
+        for i, e in enumerate(encs):
+            row = np.asarray(e["input_ids"])[0]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+            grids_i += list(e.get("image_grid_thw", []) or [])
+            grids_v += list(e.get("video_grid_thw", []) or [])
+            spg += list(e.get("second_per_grid_ts", []) or [])
+            for key in ("pixel_values", "pixel_values_videos"):
+                if key in e:
+                    patches.append(np.asarray(e[key]))
+        pos, deltas = get_rope_index(
+            qcfg, ids, image_grid_thw=grids_i or None, video_grid_thw=grids_v or None,
+            second_per_grid_ts=spg or None, attention_mask=mask,
+        )
+        pp = la = None
+        if patches:
+            la = layout_device_args(
+                compute_vision_layout(list(grids_i) + list(grids_v), qcfg.vision), qcfg.vision)
+            pp = torch.from_numpy(np.concatenate(patches, 0))
+        return dict(input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
+                    position_ids=torch.from_numpy(pos), rope_deltas=torch.from_numpy(deltas),
+                    pixel_patches=pp, vision_layout=la)
+
+    def _generate(self, encs, length_bucket: int, suppress_ids: Sequence[int]) -> torch.Tensor:
+        stats: Dict[str, float] = {}
+        toks = greedy_generate(
+            self.model, **self.prepare(encs, length_bucket),
+            max_new_tokens=self.max_new_tokens, eos_token_id=EOS_TOKEN_ID,
+            pad_token_id=PAD_TOKEN_ID, suppress_ids=suppress_ids, stats=stats,
+        )
+        self.last_stats = stats
+        return toks.cpu()
+
+    def answer(self, question: str, video_frames: Optional[Sequence[np.ndarray]] = None,
+               images: Optional[Sequence[np.ndarray]] = None,
+               suppress_ids: Sequence[int] = ()) -> str:
+        """One answer; the prompt is right-padded to a multiple of 64."""
+        enc = self.encode(question, video_frames, images)
+        toks = self._generate([enc], 64, suppress_ids)
+        return self._decode_row(toks[0].tolist())
+
+    def _decode_row(self, ids) -> str:
+        keep = []
+        for t in ids:
+            if t in (EOS_TOKEN_ID, PAD_TOKEN_ID):
+                break
+            keep.append(int(t))
+        tok = self.processor.tokenizer
+        return tok.decode(keep) if hasattr(tok, "decode") else " ".join(map(str, keep))
+
+    def answer_batch(self, questions: Sequence[str],
+                     video_frames_list: Optional[Sequence[Sequence[np.ndarray]]] = None,
+                     images_list: Optional[Sequence[Sequence[np.ndarray]]] = None,
+                     suppress_ids: Sequence[int] = (), length_bucket: int = 64) -> List[str]:
+        """One batched prefill and decode over several questions. One
+        modality per batch (videos, images or text alone): the tower's
+        tokens are scattered in patch-concatenation order, which matches
+        the text order only then."""
+        if video_frames_list is not None and images_list is not None:
+            raise ValueError("answer_batch: one modality per batch; pass videos or images")
+        encs = [self.encode(
+            q, None if video_frames_list is None else video_frames_list[i],
+            None if images_list is None else images_list[i])
+            for i, q in enumerate(questions)]
+        toks = self._generate(encs, length_bucket, suppress_ids)
+        return [self._decode_row(toks[i].tolist()) for i in range(len(questions))]

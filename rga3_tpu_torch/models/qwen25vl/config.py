@@ -3,9 +3,9 @@
 by either package loads in the other. Presets match the released
 `Qwen2.5-VL-{3B,7B}-Instruct` HF configs.
 
-The port runs the bf16/f32 float path without a KV cache or scan: the
-quantization, scan and window-resident fields are kept for the configs'
-sake and rejected by the modules when set.
+The port runs the float, int8 (weight-only or W8A8) and int4 paths with a
+bf16 or int8 KV cache; the scan and window-resident fields are kept for the
+configs' sake and rejected by the modules when set.
 """
 from __future__ import annotations
 

@@ -3,12 +3,13 @@
 <|image_pad|>/<|video_pad|> embeddings in sequence order."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ...device import DeviceLike, resolve_device
 from .config import Qwen25VLConfig
 from .language import QwenForCausalLM
 from .vision import QwenVisionTower
@@ -25,18 +26,35 @@ def scatter_vision_tokens(embeds, input_ids, vision_embeds, image_token_id,
 
 
 class Qwen25VL(nn.Module):
-    def __init__(self, cfg: Qwen25VLConfig, **factory):
+    """Vision tower + LM, built on the card (or on `device="cpu"` when
+    asked) in `dtype`."""
+
+    def __init__(self, cfg: Qwen25VLConfig, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        factory = dict(device=resolve_device(device), dtype=dtype)
         self.cfg = cfg
         self.visual = QwenVisionTower(cfg.vision, **factory)
         self.lm = QwenForCausalLM(cfg.text, **factory)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm.embed_tokens.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.lm.embed_tokens.weight.dtype
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 pixel_patches: Optional[torch.Tensor] = None,
                 vision_layout: Optional[Dict[str, np.ndarray]] = None,
-                logits: bool = True) -> Dict[str, torch.Tensor]:
+                cache: Optional[Dict[str, Any]] = None,
+                logits_indices: Optional[torch.Tensor] = None,
+                logits: bool = True) -> Dict[str, Any]:
+        """`cache` (from `language.make_kv_cache`) is written in place;
+        `logits_indices` (B,) computes the head at one position per row."""
         embeds = self.lm.embed(input_ids)
         if pixel_patches is not None:
             vis = self.visual(pixel_patches, vision_layout)
@@ -45,4 +63,5 @@ class Qwen25VL(nn.Module):
                 self.cfg.video_token_id,
             )
         return self.lm(inputs_embeds=embeds, position_ids=position_ids,
-                       segment_ids=segment_ids, logits=logits)
+                       segment_ids=segment_ids, cache=cache,
+                       logits_indices=logits_indices, logits=logits)

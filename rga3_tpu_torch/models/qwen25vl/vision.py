@@ -23,7 +23,7 @@ from ...data.processor import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from ...ops.attention import flash_attention, mha_reference
 from ...ops.rope import apply_rope, vision_rope_cos_sin
 from .config import QwenVisionConfig
-from .language import RMSNorm
+from .language import RMSNorm, make_linear
 
 
 class VisionLayout(NamedTuple):
@@ -166,12 +166,14 @@ class VisionBlock(nn.Module):
         d = cfg.hidden_size
         self.plain_attention = False
         self.norm1 = VisionRMSNorm(d, cfg.rms_norm_eps, **factory)
-        self.attn_qkv = nn.Linear(d, 3 * d, **factory)
-        self.attn_proj = nn.Linear(d, d, **factory)
+        f = cfg.intermediate_size
+        # QuantLinear (int8, W8A8 from 32 tokens) under quant_int8 / quant_w8a8
+        self.attn_qkv = make_linear(cfg, d, 3 * d, True, **factory)
+        self.attn_proj = make_linear(cfg, d, d, True, **factory)
         self.norm2 = VisionRMSNorm(d, cfg.rms_norm_eps, **factory)
-        self.mlp_gate = nn.Linear(d, cfg.intermediate_size, **factory)
-        self.mlp_up = nn.Linear(d, cfg.intermediate_size, **factory)
-        self.mlp_down = nn.Linear(cfg.intermediate_size, d, **factory)
+        self.mlp_gate = make_linear(cfg, d, f, True, **factory)
+        self.mlp_up = make_linear(cfg, d, f, True, **factory)
+        self.mlp_down = make_linear(cfg, f, d, True, **factory)
 
     def forward(self, x, cos, sin, grid_seg, win_pad, win_unpad, use_full: bool):
         cfg = self.cfg
@@ -200,7 +202,7 @@ class QwenVisionTower(nn.Module):
 
     def __init__(self, cfg: QwenVisionConfig, **factory):
         super().__init__()
-        for flag in ("scan_blocks", "quant_int8", "quant_w8a8", "window_resident"):
+        for flag in ("scan_blocks", "window_resident"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"QwenVisionConfig.{flag} is not ported")
         self.cfg = cfg

@@ -24,7 +24,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("flash_attention.cu", "window_attention.cu", "gemm.cu", "row_ops.cu")
+SOURCES = ("flash_attention.cu", "window_attention.cu", "gemm.cu", "row_ops.cu",
+           "int4_matmul.cu")
 HEADERS = ("attention_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,6 +102,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rga3_layer_norm_bf16.restype = i
     lib.rga3_window_pool2x2_bf16.argtypes = [p, i64, p, i64, i64, i, i, p]
     lib.rga3_window_pool2x2_bf16.restype = i
+    lib.rga3_int4_matmul_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.rga3_int4_matmul_bf16.restype = i
 
 
 def library() -> ctypes.CDLL:

@@ -97,7 +97,51 @@ def test_reset_launches_zeroes_counts_and_calls():
 
 def test_kernel_sources_are_listed_and_hashed():
     assert {"flash_attention.cu", "window_attention.cu", "gemm.cu",
-            "row_ops.cu"} <= set(_kernels.SOURCES)
+            "row_ops.cu", "int4_matmul.cu"} <= set(_kernels.SOURCES)
     for name in _kernels.SOURCES + _kernels.HEADERS:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
     assert len(_kernels._digest()) == 16
+
+
+def _int4_call():
+    from rga3_tpu_torch.ops import quant as tq
+
+    q, sc = tq.quantize_int4(torch.randn(128, 48))
+    tq.int4_matmul(torch.randn(3, 128), q, sc)
+    return tq.int4_matmul
+
+
+@pytest.mark.parametrize("call", [_int4_call], ids=["int4_matmul"])
+def test_cpu_tensors_launch_nothing_in_later_wrappers(call):
+    from rga3_tpu_torch.ops import quant as tq
+
+    n0, s0 = tq.int4_matmul.launches, dict(tq.int4_matmul.shapes)
+    wrapper = call()
+    assert (wrapper.launches, wrapper.shapes) == (n0, s0)
+    assert _kernels._lib is None
+
+
+@pytest.mark.parametrize("name", ["int4_matmul"])
+def test_reset_launches_covers_later_wrappers(name):
+    from rga3_tpu_torch.ops import quant as tq
+
+    wrapper = getattr(tq, name)
+    wrapper.launches, wrapper.shapes[("k",)] = 5, [5, None]
+    tatt.reset_launches()
+    assert wrapper.launches == 0 and wrapper.shapes == {}
+
+
+def test_qwen_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from rga3_tpu_torch.data.processor import QwenVLProcessor
+    from rga3_tpu_torch.evaluation.segmentor import UniGRChat
+    from rga3_tpu_torch.models.qwen25vl import tiny_config
+    from rga3_tpu_torch.models.qwen25vl.model import Qwen25VL
+    from rga3_tpu_torch.ops.quant import quantize_for_serving
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Qwen25VL(tiny_config(1000))
+    model = quantize_for_serving(Qwen25VL(tiny_config(1000), device="cpu"), "int4")
+    assert model.lm.lm_head.kernel_q4.device.type == "cpu"
+    chat = UniGRChat(model, QwenVLProcessor.from_pretrained("dummy"), max_new_tokens=2)
+    assert chat.model.device.type == "cpu"

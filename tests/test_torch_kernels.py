@@ -300,3 +300,53 @@ def test_fused_kernels_reject_what_they_do_not_take(dev):
     k = _bf16(rng, (1, 64, 2, 72), dev)
     with pytest.raises(ValueError):  # q windows neither window nor window / 4
         tatt.window_attention(q, k, k, 64, q_window=32)
+
+
+# ---- the int4 dequant-matmul (csrc/int4_matmul.cu): M on both launch
+# variants (<= 4 the GEMV, split over K when the columns are few; > 4 the
+# tensor-core tile, ragged at 17 and 300), group-32 scales (64, 3584, 18944)
+# and per-channel scales (96), out ragged against the 128-column strips (200)
+
+
+def _int4_weights(rng, in_dim, out, dev):
+    from rga3_tpu_torch.ops import quant as tq
+
+    w = torch.from_numpy((0.05 * rng.standard_normal((in_dim, out))).astype(np.float32))
+    q, s = tq.quantize_int4(w)
+    return q.to(dev), s.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [200, 512, 3584])
+@pytest.mark.parametrize("in_dim", [64, 96, 3584, 18944])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 300])
+def test_int4_matmul_matches_plain(dev, m, in_dim, out):
+    from rga3_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(m + in_dim + out)
+    q, s = _int4_weights(rng, in_dim, out, dev)
+    x = _bf16(rng, (m, in_dim), dev)
+    tatt.reset_launches()
+    y = tq.int4_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert tq.int4_matmul.launches == 1 and y.shape == (m, out) and y.dtype == torch.bfloat16
+    ref = tq.int4_matmul_reference(x, q, s)
+    assert torch.isfinite(y).all() and _rel_err(y, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_int4_matmul_rejects_what_it_does_not_take(dev):
+    from rga3_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(9)
+    q, s = _int4_weights(rng, 128, 64, dev)
+    with pytest.raises(ValueError):  # odd input dim
+        tq.int4_matmul(_bf16(rng, (2, 127), dev), q, s)
+    with pytest.raises(TypeError):  # f32 x
+        tq.int4_matmul(torch.zeros(2, 128, device=dev), q, s)
+    with pytest.raises(TypeError):  # bf16 scales
+        tq.int4_matmul(_bf16(rng, (2, 128), dev), q, s.bfloat16())
+    with pytest.raises(ValueError):  # non-contiguous x
+        tq.int4_matmul(_bf16(rng, (128, 4), dev).t(), q, s)
+    with pytest.raises(ValueError):  # non-contiguous packed weight
+        tq.int4_matmul(_bf16(rng, (2, 128), dev), q.t().contiguous().t(), s)
