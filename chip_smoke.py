@@ -30,16 +30,29 @@ Phases, each timed on its own line:
      the earlier unfused Hiera path (`unfused(cfg)`) on the
      same weights, its own launches counted, against the fused route, and
      the two routes' SAM encode of one chunk timed in six alternating pairs;
-  6. kernels: each hand-written kernel, and each fused-block wrapper built
+  6. train: `build_train_step` on the same UniGR (the release LoRA, r=128,
+     alpha=256, whose zero B left the earlier phases' outputs unchanged;
+     trainable LoRA, lm_head, embed_tokens, the SAM2 mask decoder and
+     text_hidden_fcs; remat "none"), TRAIN_STEPS steps on one batch of 2
+     samples collated by the port from the video (512 tokens, 320 merged
+     video tokens a sample, 4 SAM frames at 1024^2, random 0/1 gt masks),
+     the first cold with its launches counted (flash_attention_bwd once per
+     LM layer and per decoder image->token attention), then one traced;
+     the losses finite and falling, frozen weights bit-identical, trainable
+     ones moved, peak memory, and the kernel route's gradients against the
+     plain route's on the same weights and batch;
+  7. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the paths
      made (shapes, strides, options, segment ids; bf16 inputs; per
-     output row within ROW_TOL of the row's max|plain|), with its time, its
-     bound, the plain version's time and the time of the same function
-     composed of PyTorch library calls (`scaled_dot_product_attention`,
-     `linear`, `layer_norm`, `gelu`, `max_pool2d`; for int4_matmul `linear`
-     on the weight dequantized to bf16 once: a yardstick only, the port
-     never calls them);
-  7. reference: a small model with the fused Hiera routes (and the split
+     output row within ROW_TOL of the row's max|plain|; the flash backward
+     against `flash_attention_bwd_reference`, dq, dk and dv per row), with
+     its time, its bound, the plain version's time and the time of the same
+     function composed of PyTorch library calls
+     (`scaled_dot_product_attention` and its backward, `linear`,
+     `layer_norm`, `gelu`, `max_pool2d`; for int4_matmul `linear` on the
+     weight dequantized to bf16 once: a yardstick only, the port never calls
+     them);
+  8. reference: a small model with the fused Hiera routes (and the split
      window block) on the card against the same model in f32 on the CPU,
      and a small int4 chat on the card against the same quantized model on
      the CPU (prefill and teacher-forced decode logits).
@@ -54,6 +67,7 @@ import argparse
 import copy
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -80,6 +94,20 @@ EOS, PAD = 151645, 151643
 # output; a decode that read a wrong cache slot is off by the order of the
 # logits themselves
 CHAT_TOL = 5e-2
+TRAIN_STEPS = 5  # untraced train steps on one batch (the first at lr 0), then one traced
+TRAIN_SAM_FRAMES = 4  # TrainConfig.num_frames_sam
+TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <= 80)
+# the kernel route's training loss against the plain route's (relative) and
+# its gradients (relative L2): all trainable gradients as one vector against
+# the plain route's (every call site plain), and each tensor against the
+# same route with only the flash backward plain. bf16 weights and
+# activations through 28 layers: the two routes round attention and the
+# Hiera blocks at different places, and a random-weight network amplifies
+# those differences in some small decoder gradients (up to ~0.3 relative L2
+# with the decoder's code the same on both sides); with only the backward
+# plain, a tensor differs by the backward's own rounding (~1e-2)
+GRAD_TOL = 0.1
+LOSS_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -201,6 +229,81 @@ def check_flash(key, segs, gen, reps):
             f"segments={'none' if qseg is None else qseg.unique().numel()}")
     return dict(desc=desc, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 bound=bound(flops, nbytes))
+
+
+def flash_bwd_bound(b, lq, lk, h, hkv, d, pairs, segs):
+    """The backward's least time: 10 * H * D flops per admitted (q, k)
+    pair (S and dP recomputed, dV, dK and dQ: five D-long products), or its
+    bytes (q, o, do, k, v and the f32 LSE read once; dq, dk, dv written
+    once) over the memory rate."""
+    flops = 10.0 * h * d * pairs
+    nbytes = 2.0 * (4 * b * lq * h * d + 4 * b * lk * hkv * d) + 4.0 * b * h * lq
+    if segs is not None:
+        nbytes += 4.0 * b * (lq + lk)
+    return bound(flops, nbytes)
+
+
+def check_flash_bwd(key, segs, gen, reps):
+    """The backward kernel against `flash_attention_bwd_reference` (with
+    the plain log-sum-exp) at a recorded call: o and the kernel's LSE from
+    the forward kernel, a random output gradient; dq per row with two or
+    more valid keys (a row with one has an exact dq of zero, and both sides
+    hold rounding noise there: those are held to 1e-3 of max|dq|), dk / dv
+    per row. library_ms: the backward of SDPA (kv expanded to the q heads,
+    the boolean mask), timed as `torch.autograd.grad` of its output."""
+    import torch
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import attention as tatt
+
+    qshape, qstride, kshape, kstride, vstride, causal, scale = key
+    b, lq, h, d = qshape
+    lk, hkv = kshape[1], kshape[2]
+    q = randn_strided(qshape, qstride, gen)
+    k = randn_strided(kshape, kstride, gen)
+    v = randn_strided(kshape, vstride, gen)
+    qseg, kseg = segs if segs is not None else (None, None)
+    kw = dict(causal=causal, segment_ids=qseg, kv_segment_ids=kseg, scale=scale)
+    o, lse = tatt._flash_forward(q, k, v, qseg, kseg, causal, scale, with_lse=True)
+    do = randn_strided(qshape, tuple(o.stride()), gen)
+    dq, dk, dv = tatt.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    _, lse_ref = tatt.mha_reference(q, k, v, **kw, return_lse=True)
+    ref = tatt.flash_attention_bwd_reference(q, k, v, o, lse_ref, do, **kw)
+    allowed = tatt._allowed(b, lq, lk, q.device, causal, qseg, kseg)
+    if allowed is None:
+        n_keys = torch.full((b, lq), lk, device="cuda")
+    else:
+        n_keys = allowed.expand(b, 1, lq, lk).sum(-1)[:, 0]
+    pairs = n_keys.sum().item()  # admitted (q, k) pairs of one head
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"flash_bwd {qshape}: non-finite {name}")
+    rel_q, err_q = row_rel_err(dq, ref[0], n_keys >= 2)
+    lone = dq[n_keys == 1]
+    if lone.numel() and lone.float().abs().max().item() > 1e-3 * ref[0].float().abs().max().item():
+        raise AssertionError(f"flash_bwd {qshape}: rows with one key have nonzero dq")
+    kv_rows = torch.ones(b, lk, dtype=torch.bool, device="cuda")
+    rel_k, err_k = row_rel_err(dk, ref[1], kv_rows)
+    rel_v, err_v = row_rel_err(dv, ref[2], kv_rows)
+    rel, err = max(rel_q, rel_k, rel_v), max(err_q, err_k, err_v)
+    if rel > ROW_TOL:
+        raise AssertionError(f"flash_bwd {qshape}: row error dq {rel_q} dk {rel_k} dv {rel_v} "
+                             f"> {ROW_TOL} of max|ref|")
+    del ref
+    ms = time_ms(lambda: tatt.flash_attention_bwd(q, k, v, o, lse, do, **kw), reps)
+    plain_ms = time_ms(lambda: tatt.flash_attention_bwd_reference(q, k, v, o, lse_ref, do, **kw),
+                       max(2, reps // 4))
+    rep = h // hkv
+    qt = q.detach().transpose(1, 2).requires_grad_()
+    kt = k.detach().repeat_interleave(rep, 2).transpose(1, 2).requires_grad_()
+    vt = v.detach().repeat_interleave(rep, 2).transpose(1, 2).requires_grad_()
+    mask = None if allowed is None else allowed.expand(b, 1, lq, lk)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale)
+    go = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), go, retain_graph=True), reps)
+    desc = (f"B={b} Lq={lq} Lk={lk} H={h}/{hkv} D={d} causal={causal} "
+            f"segments={'none' if qseg is None else qseg.unique().numel()}")
+    return dict(desc=desc, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                bound=flash_bwd_bound(b, lq, lk, h, hkv, d, pairs, segs))
 
 
 def lib_window(q, k, v, window, q_window, scale):
@@ -584,6 +687,8 @@ FUSED = "rga3_tpu/ops/fused_block.py"
 KERNELS = (
     ("flash_attention", check_flash, "rga3_tpu_torch/csrc/flash_attention.cu",
      "rga3_tpu/ops/attention.py:75"),
+    ("flash_attention_bwd", check_flash_bwd, "rga3_tpu_torch/csrc/flash_attention_bwd.cu",
+     "rga3_tpu/ops/attention.py:480"),
     ("window_attention", check_window, "rga3_tpu_torch/csrc/window_attention.cu",
      "rga3_tpu/ops/attention.py:228"),
     ("gemm", check_gemm, "rga3_tpu_torch/csrc/gemm.cu", f"{FUSED}:312"),
@@ -604,7 +709,10 @@ KERNELS = (
     ("int4_matmul", check_int4, "rga3_tpu_torch/csrc/int4_matmul.cu",
      "rga3_tpu/ops/quant.py:159"),
 )
-SEGMENT_KERNELS = tuple(name for name, *_ in KERNELS if name != "int4_matmul")
+SEGMENT_KERNELS = tuple(name for name, *_ in KERNELS
+                        if name not in ("int4_matmul", "flash_attention_bwd"))
+# the training path runs every kernel of segmentation and the backward
+TRAIN_KERNELS = SEGMENT_KERNELS + ("flash_attention_bwd",)
 # launches of the fused block wrappers in one 8-frame call: Hiera-L's
 # windowed blocks at widths <= 576 (stages 1-3: 2 + 5 + 32), its global
 # blocks (23, 33, 43), its stage-4 windowed blocks and its q-pool blocks
@@ -911,6 +1019,239 @@ def chat_phase(model, proc, frames, read_path) -> dict:
     return paths
 
 
+def train_batch(frames, cfg, seed, model_device):
+    """A release micro-batch on the smoke's video, through the port's
+    processor and `collate`: B = 2 samples with questions of two lengths
+    and [SEG] answers, right-padded to 512 tokens; the video at up to
+    TRAIN_VIDEO_TOKENS merged tokens a sample, padded to that budget; T =
+    TRAIN_SAM_FRAMES uint8 SAM frames at the SAM resolution; random 0/1 gt
+    masks at the video's size. Returns the train_forward keyword arguments,
+    on the card."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.data.collate import TrainSample, collate
+    from rga3_tpu_torch.data.processor import ChatMessage, QwenVLProcessor
+    from rga3_tpu_torch.ops.resize import resize_u8_bicubic_aa
+
+    unit = cfg.qwen.vision.merge_unit
+    proc = QwenVLProcessor.from_pretrained(
+        "dummy", video_max_pixels=TRAIN_VIDEO_TOKENS // 4 * 28 * 28)
+    rng = np.random.default_rng(seed + 1)
+    size = cfg.sam2.image_size
+    idx = np.linspace(0, len(frames) - 1, TRAIN_SAM_FRAMES).round().astype(int)
+    sam = resize_u8_bicubic_aa(torch.from_numpy(np.stack([frames[i] for i in idx])),
+                               (size, size)).numpy()
+    dialogues = [
+        ("Please segment the person on the left in this video.",
+         "Sure, the person on the left is [SEG] . They walk toward the camera, stop near "
+         "the door and turn to look at the street."),
+        ("Can you segment the red car that is moving away from the camera, behind the "
+         "trees on the far side of the road?", "It is [SEG] ."),
+    ]
+    samples = [TrainSample(
+        sample_id=str(i),
+        messages=[ChatMessage("user", [{"type": "video"}, {"type": "text", "text": q}]),
+                  ChatMessage("assistant", [{"type": "text", "text": a}])],
+        video_frames=frames, sam_frames=sam,
+        gt_masks=(rng.random((TRAIN_SAM_FRAMES,) + frames[0].shape[:2]) > 0.5).astype(np.float32),
+    ) for i, (q, a) in enumerate(dialogues)]
+    c = collate(samples, proc, cfg.qwen, pad_to_multiple=512,
+                vision_budget_tokens=len(samples) * TRAIN_VIDEO_TOKENS * unit)
+    dev = model_device
+    batch = {k: torch.as_tensor(c[k], device=dev) for k in (
+        "input_ids", "labels", "position_ids", "images_sam", "gt_masks", "masks_valid",
+        "pixel_patches")}
+    batch["segment_ids"] = torch.as_tensor(c["attention_mask"], device=dev).int()
+    batch["vision_layout"] = {k: torch.as_tensor(v, device=dev)
+                              for k, v in c["vision_layout"].items()}
+    log(f"train batch: input_ids {tuple(c['input_ids'].shape)}, text lengths "
+        f"{c['attention_mask'].sum(1).tolist()}, supervised tokens "
+        f"{(c['labels'] != -100).sum(1).tolist()}, video grids {c['video_grid_thw']}, "
+        f"pixel_patches {tuple(c['pixel_patches'].shape)} (budget "
+        f"{len(samples) * TRAIN_VIDEO_TOKENS} merged tokens), images_sam "
+        f"{tuple(c['images_sam'].shape)} {c['images_sam'].dtype}, gt_masks "
+        f"{tuple(c['gt_masks'].shape)}")
+    return batch
+
+
+def compare_grads(grads, refs):
+    """(per-tensor relative L2 sorted worst first, the largest key-bias
+    gradient relative to its key weights', the relative L2 of all the
+    gradients as one vector) of `grads` against `refs`. A key bias shifts
+    every logit of a softmax row alike, so its exact gradient is zero and
+    both sides hold rounding noise: it is held to its weights' gradient
+    norm instead."""
+    import torch
+
+    rels, key_bias, diff2, ref2 = [], 0.0, 0.0, 0.0
+    for n, gr in refs.items():
+        g = grads[n]
+        if gr is None or g is None:
+            if (gr is None) != (g is None):
+                raise AssertionError(f"train: {n} has a gradient on one side only")
+            continue
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"train: non-finite gradient of {n}")
+        d2 = (g.float() - gr.float()).square().sum().item()
+        r2 = gr.float().square().sum().item()
+        diff2, ref2 = diff2 + d2, ref2 + r2
+        if n.endswith("k_proj.bias"):
+            scale = refs[n[:-len("bias")] + "weight"].float().norm().item()
+            key_bias = max(key_bias, max(g.float().norm().item(), r2 ** 0.5) / scale)
+            continue
+        rels.append(((d2 / max(r2, 1e-60)) ** 0.5, n))
+    rels.sort(reverse=True)
+    return rels, key_bias, (diff2 / ref2) ** 0.5
+
+
+def train_phase(model, frames, seed, read_path) -> dict:
+    """The UniGR train step at the model's width (`build_train_step`, remat
+    "none", the release trainable set; TrainConfig with a one-step warmup)
+    on one fixed batch: TRAIN_STEPS steps, the first (cold, at lr 0) with the
+    launch counts reset before it and read after it, then one traced step;
+    checks the losses, the frozen and trainable weights, the launches, and
+    the kernel route's gradients against the plain route's on the same
+    weights and batch. Returns the path's (launches, calls)."""
+    import torch
+    from rga3_tpu_torch.config import TrainConfig
+    from rga3_tpu_torch.ops import attention as tatt
+    from rga3_tpu_torch.ops.attention import reset_launches, set_plain_attention
+    from rga3_tpu_torch.train.step import build_train_step, make_train_state
+
+    flash_bwd_kernel = tatt.flash_attention_bwd
+
+    cfg = model.cfg
+    batch = train_batch(frames, cfg, seed, model.device)
+    # a one-step warmup (max(1, int(20 * 0.03))): the first update's lr is 0,
+    # the later ones ~lr
+    tcfg = TrainConfig(epochs=1, steps_per_epoch=20, grad_accum_steps=1)
+    state, opt = make_train_state(tcfg, model)
+    n_train = sum(p.numel() for p in opt.params.values())
+    t0 = time.perf_counter()
+    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    log(f"train: {n_train / 1e9:.4f} B trainable parameters in {len(opt.params)} tensors "
+        f"(LoRA r={cfg.qwen.text.lora_rank} alpha={cfg.qwen.text.lora_alpha}, lm_head, "
+        f"embed_tokens, sam_mask_decoder, text_hidden_fcs); Adam mu {tcfg.adam_mu_dtype}, "
+        f"nu in the parameters' dtype; weights copied to the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = build_train_step(lambda m, mb: m.train_forward(**mb), opt, timed=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, path = [], [], None
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            reset_launches()
+        t1 = time.perf_counter()
+        state, aux = step(state, [batch])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        if i == 0:
+            path = read_path()
+        losses.append({k: float(v) for k, v in aux.items()})
+        sec = step.seconds
+        log(f"train step {i + 1} ({'cold' if i == 0 else 'warm'}): {walls[-1]:.3f} s; forward "
+            f"{sec['forward']:.3f}, backward {sec['backward']:.3f}, optimizer "
+            f"{sec['optimizer']:.3f} s; lr {aux['lr']:.3e}, grad norm {aux['grad_norm']:.4f}; "
+            + ", ".join(f"{k} {losses[-1][k]:.5f}" for k in (
+                "loss", "ce_loss", "mask_bce_loss", "mask_dice_loss")))
+    peak = torch.cuda.max_memory_allocated()
+    launches = path[0]
+    per_step = cfg.qwen.text.num_hidden_layers + cfg.sam2.twoway_depth
+    log(f"train: launches of the cold step {({k: n for k, n in launches.items() if n})}; "
+        f"flash_attention_bwd {launches['flash_attention_bwd']} (the LM's "
+        f"{cfg.qwen.text.num_hidden_layers} layers + the decoder's {cfg.sam2.twoway_depth} "
+        f"image->token attentions = {per_step}); max_memory_allocated {peak / 2**30:.2f} GiB "
+        "(the bf16 UniGR included)")
+    for k in TRAIN_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"train: {k} was not launched")
+    if launches["flash_attention_bwd"] != per_step:
+        raise AssertionError(f"train: {launches['flash_attention_bwd']} flash backward launches, "
+                             f"expected {per_step}")
+    if not all(math.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError("train: non-finite loss")
+    if not losses[-1]["loss"] < losses[0]["loss"]:
+        raise AssertionError(f"train: the loss did not fall ({losses[0]['loss']} -> "
+                             f"{losses[-1]['loss']})")
+    t0 = time.perf_counter()
+    moved, frozen_same, frozen = [], 0, 0
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach().cpu(), before[n])
+        if n in opt.params:
+            moved.append((n, not same))
+        else:
+            frozen += 1
+            frozen_same += same
+    must_move = [n for n, m in moved if not m and "sam_mask_decoder" not in n]
+    n_moved = sum(m for _, m in moved)
+    log(f"train: frozen tensors bit-identical {frozen_same} of {frozen}; trainable tensors "
+        f"moved {n_moved} of {len(moved)} (those of the decoder that the loss does not reach "
+        f"stay); compared in {time.perf_counter() - t0:.2f} s")
+    if frozen_same != frozen or must_move:
+        raise AssertionError(f"train: frozen weights changed or trainable ones stayed: "
+                             f"{must_move[:5]}")
+    del before
+    # where a warm step's device time goes: one more step, traced
+    warm = statistics.median(walls[1:])
+    busy = device_breakdown(lambda: step(state, [batch]))
+    log(f"profile (train step): device busy in the traced step / median wall of the untraced "
+        f"warm steps: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}")
+
+    # the kernel route against the plain route on the same weights and batch,
+    # and against the same route with only the flash backward plain
+    def loss_and_grads():
+        for p in opt.params.values():
+            p.grad = None
+        out = model.train_forward(**batch)
+        out["loss"].backward()
+        grads = {n: p.grad for n, p in opt.params.items()}
+        for p in opt.params.values():
+            p.grad = None
+        return out["loss"].item(), grads
+
+    loss_k, grads_k = loss_and_grads()
+    set_plain_attention(model, True)
+    loss_p, grads_p = loss_and_grads()
+    # the plain route upstream of a kernel-route decoder: the decoder's code
+    # differs from the plain route's in nothing, what its gradients differ
+    # by comes from the rounding upstream (the LM, the vision tower, Hiera)
+    set_plain_attention(model.grounding_encoder.sam_mask_decoder, False)
+    _, grads_u = loss_and_grads()
+    set_plain_attention(model, False)
+    tatt.flash_attention_bwd = tatt.flash_attention_bwd_reference
+    try:
+        loss_b, grads_b = loss_and_grads()
+    finally:
+        tatt.flash_attention_bwd = flash_bwd_kernel
+    rel_p, key_p, glob_p = compare_grads(grads_k, grads_p)
+    rel_b, key_b, _ = compare_grads(grads_k, grads_b)
+    decoder = [n for n in grads_p if ".sam_mask_decoder." in n]
+    rel_u = compare_grads({n: grads_u[n] for n in decoder}, {n: grads_k[n] for n in decoder})[0]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+
+    def worst(rels):
+        return ", ".join(f"{n} {r:.3e}" for r, n in rels[:3]) + (
+            f"; median {statistics.median(r for r, _ in rels):.3e} over {len(rels)} tensors")
+
+    log(f"train: kernel route vs plain route (every call site plain), same weights and batch: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.3e}, tol {LOSS_TOL}); all trainable "
+        f"gradients as one vector rel L2 {glob_p:.3e} (tol {GRAD_TOL}); per tensor, worst: "
+        f"{worst(rel_p)}")
+    log(f"train: the mask decoder's gradients, kernel route vs plain route upstream of the "
+        f"same kernel-route decoder, worst: {worst(rel_u)}")
+    log(f"train: kernel route vs the same route with the plain flash backward "
+        f"(flash_attention_bwd_reference on the same o and LSE): loss {loss_b:.6f}; per tensor "
+        f"rel L2 (tol {GRAD_TOL}), worst: {worst(rel_b)}; key biases (exact gradient 0) at most "
+        f"{max(key_p, key_b):.3e} of their weights' gradient")
+    if (loss_rel > LOSS_TOL or glob_p > GRAD_TOL or rel_b[0][0] > GRAD_TOL
+            or max(key_p, key_b) > GRAD_TOL or loss_b != loss_k):
+        raise AssertionError("train: the kernel route's gradients disagree with the plain route")
+    del grads_k, grads_p, grads_u, grads_b, opt, state, step, batch
+    torch.cuda.empty_cache()
+    return {"train": path}
+
+
 def device_breakdown(run, top: int = 20) -> float:
     """Run `run()` under torch.profiler, print the device time by kernel
     name and the host wall time around it, and return the device busy ms
@@ -971,7 +1312,8 @@ def main() -> int:
     from rga3_tpu_torch.ops import _kernels
     from rga3_tpu_torch.ops import fused_block as fb
     from rga3_tpu_torch.ops.attention import (
-        flash_attention, reset_launches, set_plain_attention, window_attention,
+        flash_attention, flash_attention_bwd, reset_launches, set_plain_attention,
+        window_attention,
     )
     from rga3_tpu_torch.ops.quant import int4_matmul
 
@@ -1009,8 +1351,11 @@ def main() -> int:
     frames = [rng.integers(0, 256, (fh, fw, 3), dtype=np.uint8) for _ in range(n_frames)]
     expressions = ["the person on the left", "the red car moving away"]
     proc = QwenVLProcessor.from_pretrained("dummy")
+    # the release LoRA (r=128, alpha=256 on q_proj / v_proj); B starts at
+    # zero, so the adapters change no output until the training phase
+    qwen = QWEN25_VL_7B.replace(text=QWEN25_VL_7B.text.replace(lora_rank=128, lora_alpha=256.0))
     cfg = UniGRConfig(
-        qwen=QWEN25_VL_7B, sam2=Sam2Config(),
+        qwen=qwen, sam2=Sam2Config(),
         seg=SegHeadConfig(out_dim=256, seg_token_id=proc.seg_token_id),
     )
     chunk = 8
@@ -1029,7 +1374,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     wrappers = {"flash_attention": flash_attention, "window_attention": window_attention,
-                "int4_matmul": int4_matmul}
+                "int4_matmul": int4_matmul, "flash_attention_bwd": flash_attention_bwd}
     wrappers.update((name, getattr(fb, name)) for name in SEGMENT_KERNELS[2:])
 
     def read_path():
@@ -1136,11 +1481,18 @@ def main() -> int:
             and unfused_launches.get("window_attention", 0) > 0
             and not any(k.startswith("fused_") for k in unfused_launches)):
         raise AssertionError("the unfused Hiera path disagrees with the fused route")
-    del model, seg, emb_k, emb_p, logits_k, logits_p, logits_u
+    del seg, emb_k, emb_p, logits_k, logits_p, logits_u
     torch.cuda.empty_cache()
     log(f"phase plain_route: {time.perf_counter() - t0:.2f} s")
 
-    # ---- 6. each kernel against its plain version, at every call the paths
+    # ---- 6. train: the UniGR train step at the same width, on these weights
+    t0 = time.perf_counter()
+    paths.update(train_phase(model, frames, seed, read_path))
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase train: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 7. each kernel against its plain version, at every call the paths
     # made (shapes, strides, masks and segment ids as recorded); a call's
     # times count once for each launch of it in each path's run
     t0 = time.perf_counter()
@@ -1183,7 +1535,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 
-    # ---- 7. small models on the card against the same models on the CPU
+    # ---- 8. small models on the card against the same models on the CPU
     t0 = time.perf_counter()
     small_reference(seed)
     small_chat_reference(seed)

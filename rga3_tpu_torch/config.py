@@ -1,14 +1,14 @@
 """Typed configuration: frozen dataclasses that serialize to/from JSON.
 
-The port's own copy of `rga3_tpu/config.py` (`ConfigBase`, `SegHeadConfig`);
-the configs of the models live next to the model code.
+The port's own copy of `rga3_tpu/config.py` (`ConfigBase`, `SegHeadConfig`,
+`TrainConfig`); the configs of the models live next to the model code.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 
 class ConfigBase:
@@ -55,3 +55,47 @@ class SegHeadConfig(ConfigBase):
     freeze_sam_backbone: bool = True
     # resolved at tokenizer build time; -1 = unset
     seg_token_id: int = -1
+
+
+@dataclass(frozen=True)
+class TrainConfig(ConfigBase):
+    """Training hyperparameters, the JAX package's fields and defaults
+    (AdamW, warmup then cosine to a floor, clipping, LoRA, the trainable
+    modules on top of LoRA, frames per sample)."""
+
+    lr: float = 4e-5
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.0
+    warmup_ratio: float = 0.03
+    min_lr_ratio: float = 0.03  # cosine floor
+    grad_clip: float = 1.0
+    epochs: int = 80
+    steps_per_epoch: int = 100
+    micro_batch_size: int = 2
+    grad_accum_steps: int = 8
+    precision: str = "bfloat16"
+    # dtype of Adam's first moment ("float32" or "bfloat16"); the second
+    # moment keeps the parameter's dtype
+    adam_mu_dtype: str = "float32"
+    lora_r: int = 128
+    lora_alpha: int = 256
+    lora_dropout: float = 0.05
+    lora_target_modules: Tuple[str, ...] = ("q_proj", "v_proj")
+    # modules with full fine-tuning on top of LoRA
+    trainable_modules: Tuple[str, ...] = (
+        "lm_head",
+        "embed_tokens",
+        "sam_mask_decoder",
+        "text_hidden_fcs",
+    )
+    num_frames_mllm: int = 8
+    num_frames_sam: int = 4
+    seed: int = 42
+    auto_resume: bool = True
+    ckpt_dir: str = "runs/default"
+    # LM activation strategy: "full" recomputes whole decoder layers in the
+    # backward, "none" stores everything; "dots" (save the weight products'
+    # outputs) is the JAX package's default and is not ported yet: the
+    # decoder raises on it. bool accepted (True -> "full", False -> "none").
+    remat: Any = "dots"

@@ -24,6 +24,7 @@ constexpr int kTileRows = 64;    // query rows per block == keys per tile
 constexpr int kThreads = 256;    // 4 threads per query row
 constexpr int kChunk = 16;       // keys per online-softmax update
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // The Pallas kernels' mask value (ops/attention.py DEFAULT_MASK_VALUE).
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 

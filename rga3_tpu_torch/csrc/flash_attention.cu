@@ -16,6 +16,11 @@
 // differ between the two; rows with at least one valid key agree with
 // `mha_reference`. Keys past lk are always masked.
 //
+// Given an `lse` pointer it also writes each row's f32 log-sum-exp (natural
+// log, (B, H, Lq)), the residual of the backward kernel
+// (flash_attention_bwd.cu): the running max and sum are in registers at the
+// end anyway, so this costs one store per row, and nothing without it.
+//
 // What bounds it on the H100: at the main path's shapes (LM prefill
 // L~1.3k D=128, ViT L~4.8k D=80, Hiera global L=4096 D=72) attention does
 // ~4*L*D flops per byte of q/k/v read, far above the card's ~295
@@ -36,6 +41,7 @@ struct FlashParams {
   __nv_bfloat16* o;
   const int32_t* q_seg;   // (B, Lq) contiguous, or null
   const int32_t* kv_seg;  // (B, Lk) contiguous, or null
+  float* lse;             // (B, H, Lq) contiguous, or null
   Strides qs, ks, vs, os;
   int lq, lk, h, rep;
   int causal;
@@ -107,8 +113,13 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashParams p) {
     for (int j0 = 0; j0 < kTileRows; j0 += kChunk)
       st.chunk(q, ks, vs, j0, t4, keep);
   }
-  if (qi < p.lq)
+  if (qi < p.lq) {
     st.store(p.o + b * p.os.b + (int64_t)qi * p.os.l + h * p.os.h, t4);
+    // m and l are base-2 (scores carry log2(e)); no key visited -> -inf
+    if (p.lse && t4 == 0)
+      p.lse[((int64_t)b * p.h + h) * p.lq + qi] =
+          st.l == 0.f ? -INFINITY : (st.m + log2f(st.l)) * kLn2;
+  }
 }
 
 template <int D>
@@ -124,12 +135,13 @@ cudaError_t launch(const FlashParams& p, int batch, cudaStream_t stream) {
 }  // namespace
 }  // namespace rga3
 
-// Plain C entry point for ctypes. Strides are in elements. Returns a
+// Plain C entry point for ctypes. Strides are in elements; `lse` may be
+// null. Returns a
 // cudaError_t (0 on success); cudaErrorInvalidValue for an unsupported head
 // dim.
 extern "C" int rga3_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, const void* q_seg,
-    const void* kv_seg, int batch, int lq, int lk, int heads, int kv_heads,
+    const void* kv_seg, void* lse, int batch, int lq, int lk, int heads, int kv_heads,
     int head_dim, int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb,
     int64_t k_sl, int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,
     int64_t o_sb, int64_t o_sl, int64_t o_sh, int causal, float scale,
@@ -143,6 +155,7 @@ extern "C" int rga3_flash_attention_bf16(
   p.o = static_cast<__nv_bfloat16*>(o);
   p.q_seg = static_cast<const int32_t*>(q_seg);
   p.kv_seg = static_cast<const int32_t*>(kv_seg);
+  p.lse = static_cast<float*>(lse);
   p.qs = {q_sb, q_sl, q_sh};
   p.ks = {k_sb, k_sl, k_sh};
   p.vs = {v_sb, v_sl, v_sh};

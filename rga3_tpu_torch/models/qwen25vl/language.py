@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ...ops import rope as rope_ops
 from ...ops.attention import flash_attention, mha_reference
@@ -74,11 +75,12 @@ def make_kv_cache(cfg: QwenTextConfig, batch: int, max_len: int,
 
 class QuantLinear(nn.Module):
     """Weight-only quantized linear layer in the JAX package's layout, held
-    as buffers: bits=4 `kernel_q4` (in/2, out) int8 + `scale_g` (groups,
-    out) f32 (`ops.quant.int4_matmul`); bits=8 `kernel_q` (in, out) int8 +
-    `scale` (out,) f32, weight-only, or W8A8 when the token axis (the
-    second-to-last dim) is at least `w8a8_min_seq` (> 0). An optional bias
-    is added in x's dtype."""
+    as buffers, for serving (its products raise under grad): bits=4
+    `kernel_q4` (in/2, out) int8 + `scale_g` (groups, out) f32
+    (`ops.quant.int4_matmul`); bits=8 `kernel_q` (in, out) int8 + `scale`
+    (out,) f32, weight-only, or W8A8 when the token axis (the second-to-last
+    dim) is at least `w8a8_min_seq` (> 0). An optional bias is added in x's
+    dtype."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = False,
                  bits: int = 8, w8a8_min_seq: int = 0, device=None, dtype=None):
@@ -256,14 +258,30 @@ class DecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-class QwenLM(nn.Module):
-    """Decoder stack over input embeddings with 3-stream M-RoPE ids."""
+REMAT_MODES = ("none", "full")
 
-    def __init__(self, cfg: QwenTextConfig, **factory):
+
+def remat_mode(remat: Any) -> str:
+    """The decoder's activation strategy from the JAX package's values:
+    False / None / "none" store everything; True / "full" recompute each
+    decoder layer in the backward (`torch.utils.checkpoint`). "dots" (keep
+    the weight products' outputs) is not ported and raises."""
+    mode = {False: "none", None: "none", True: "full"}.get(remat, remat)
+    if mode not in REMAT_MODES:
+        raise NotImplementedError(f"remat={remat!r} is not ported (takes {REMAT_MODES})")
+    return mode
+
+
+class QwenLM(nn.Module):
+    """Decoder stack over input embeddings with 3-stream M-RoPE ids.
+    `remat` ("none" or "full") applies to the forward without a cache."""
+
+    def __init__(self, cfg: QwenTextConfig, remat: Any = "none", **factory):
         super().__init__()
         if cfg.scan_layers:
             raise NotImplementedError("QwenTextConfig.scan_layers is not ported")
         self.cfg = cfg
+        self.remat = remat_mode(remat)
         for i in range(cfg.num_hidden_layers):
             setattr(self, f"layers_{i}", DecoderLayer(cfg, **factory))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **factory)
@@ -283,12 +301,17 @@ class QwenLM(nn.Module):
             idx, fresh = cache["idx"], cache["fresh"]
             cache_seg = cache["seg"]
             cache_seg[:, idx:idx + l] = (1 if segment_ids is None else segment_ids)
+        remat = self.remat == "full" and cache is None and torch.is_grad_enabled()
         for i in range(cfg.num_hidden_layers):
+            layer = getattr(self, f"layers_{i}")
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(layer, x, cos, sin, segment_ids,
+                                                      use_reentrant=False)
+                continue
             layer_cache = None
             if cache is not None:
                 layer_cache = {key: cache[key][i] for key in CACHE_PLANES if key in cache}
-            x = getattr(self, f"layers_{i}")(x, cos, sin, segment_ids, layer_cache, idx,
-                                              cache_seg, fresh)
+            x = layer(x, cos, sin, segment_ids, layer_cache, idx, cache_seg, fresh)
         if cache is not None:
             cache["idx"], cache["fresh"] = idx + l, False
         return self.norm(x)
@@ -297,11 +320,11 @@ class QwenLM(nn.Module):
 class QwenForCausalLM(nn.Module):
     """Embedding + decoder + lm_head (tied for 3B)."""
 
-    def __init__(self, cfg: QwenTextConfig, **factory):
+    def __init__(self, cfg: QwenTextConfig, remat: Any = "none", **factory):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
-        self.model = QwenLM(cfg, **factory)
+        self.model = QwenLM(cfg, remat=remat, **factory)
         if not cfg.tie_word_embeddings:
             self.lm_head = make_linear(cfg, cfg.hidden_size, cfg.vocab_size, False,
                                        w8a8=False, **factory)

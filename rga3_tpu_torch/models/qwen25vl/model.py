@@ -27,15 +27,16 @@ def scatter_vision_tokens(embeds, input_ids, vision_embeds, image_token_id,
 
 class Qwen25VL(nn.Module):
     """Vision tower + LM, built on the card (or on `device="cpu"` when
-    asked) in `dtype`."""
+    asked) in `dtype`; `remat` ("none" or "full") is the LM's activation
+    strategy in training."""
 
     def __init__(self, cfg: Qwen25VLConfig, device: DeviceLike = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: Any = "none"):
         super().__init__()
         factory = dict(device=resolve_device(device), dtype=dtype)
         self.cfg = cfg
         self.visual = QwenVisionTower(cfg.vision, **factory)
-        self.lm = QwenForCausalLM(cfg.text, **factory)
+        self.lm = QwenForCausalLM(cfg.text, remat=remat, **factory)
 
     @property
     def device(self) -> torch.device:

@@ -1,7 +1,8 @@
 """Qwen2.5-VL windowed-attention vision tower, counterpart of
 `rga3_tpu/models/qwen25vl/vision.py`.
 
-Host side (numpy, `compute_vision_layout` / `layout_device_args`): window
+Host side (numpy, `compute_vision_layout` / `layout_device_args`, and
+`pad_vision_inputs` for a fixed token budget): window
 reordering, per-grid segment ids, rotary coordinates and the gathers of the
 uniform-window blocks, for a given `grid_thw`. Device side: the patch
 embedding as one matmul over pre-extracted patches, `depth` blocks, then the
@@ -12,7 +13,7 @@ outside Pallas too).
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +130,61 @@ def layout_device_args(layout: VisionLayout, cfg: QwenVisionConfig) -> Dict[str,
         win_pad=win_pad.astype(np.int64),
         win_unpad=win_unpad.astype(np.int64),
     )
+
+
+def win_budget_tokens(budget_tokens: int, cfg: QwenVisionConfig) -> int:
+    """The padded-window stream's length for a token budget: edge windows
+    are padded to full tiles (up to ~1.5x the tokens), in whole tiles."""
+    tile = (cfg.window_size // cfg.patch_size) ** 2
+    need = budget_tokens + budget_tokens // 2
+    return -(-need // tile) * tile
+
+
+def pad_vision_inputs(pixel_patches: np.ndarray, layout: VisionLayout,
+                      cfg: QwenVisionConfig, budget_tokens: int,
+                      win_budget: Optional[int] = None):
+    """Pad ragged vision inputs to `budget_tokens` patches (a multiple of
+    the merge unit), as the JAX package's `pad_vision_inputs`: pad patches
+    are zeros in windows and a grid of their own (segment ids -3 / -4),
+    left out of every window gather (-1) and mapped onto the merged tail,
+    which the LM's scatter never reads. Returns (patches, layout args)."""
+    if budget_tokens % cfg.merge_unit:
+        raise ValueError(f"budget {budget_tokens} is not a multiple of the merge unit")
+    n = layout.total_tokens
+    if n > budget_tokens:
+        raise ValueError(f"{n} vision tokens exceed the budget {budget_tokens}")
+    pad = budget_tokens - n
+    unit = cfg.merge_unit
+    token_perm = (layout.window_index[:, None] * unit + np.arange(unit)[None, :]).reshape(-1)
+    patches = np.zeros((budget_tokens, pixel_patches.shape[1]), pixel_patches.dtype)
+    patches[:n] = pixel_patches
+
+    def pad1(x, fill):
+        return np.concatenate([x, np.full((pad,), fill, x.dtype)]) if pad else x
+
+    wp = layout.win_pad_units.astype(np.int64)
+    win_pad = np.where(wp[:, None] >= 0, wp[:, None] * unit + np.arange(unit)[None, :],
+                       -1).reshape(-1).astype(np.int32)
+    up = layout.win_unpad_units.astype(np.int64)
+    win_unpad = (up[:, None] * unit + np.arange(unit)[None, :]).reshape(-1).astype(np.int32)
+    wb = win_budget if win_budget is not None else win_budget_tokens(budget_tokens, cfg)
+    if len(win_pad) > wb:
+        raise ValueError(f"padded-window stream {len(win_pad)} exceeds win_budget {wb}")
+    merged = n // unit
+    layout_args = dict(
+        hpos=pad1(layout.hpos, 0),
+        wpos=pad1(layout.wpos, 0),
+        window_seg=pad1(layout.window_seg, -3),
+        grid_seg=pad1(layout.grid_seg, -4),
+        token_perm=pad1(token_perm.astype(np.int32), 0),
+        merged_reverse=np.concatenate([
+            layout.reverse_index.astype(np.int32),
+            np.arange(merged, merged + pad // unit, dtype=np.int32)]),
+        win_pad=np.concatenate([win_pad, np.full(wb - len(win_pad), -1, np.int32)]),
+        win_unpad=np.concatenate([win_unpad, np.full(budget_tokens - len(win_unpad), -1,
+                                                     np.int32)]),
+    )
+    return patches, layout_args
 
 
 def _take_fill(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -130,8 +130,12 @@ class MaskDecoder(nn.Module):
         return masks, iou_pred, mask_tokens_out, object_score_logits
 
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
-                high_res_features, multimask_output: bool):
-        if not multimask_output:
+                high_res_features, multimask_output: bool, training: bool = False):
+        """`training` turns off the dynamic single-mask selection by
+        stability (the first mask is taken), as in the JAX package; that
+        selection itself is not on the ported path and raises."""
+        dynamic = self.cfg.dynamic_multimask_via_stability and not training
+        if not multimask_output and dynamic:
             raise NotImplementedError(
                 "single-mask output (dynamic stability selection) is not "
                 "on the ported path"
@@ -140,5 +144,8 @@ class MaskDecoder(nn.Module):
             image_embeddings, image_pe, sparse_prompt, dense_prompt,
             high_res_features,
         )
-        return (masks[:, 1:], iou_pred[:, 1:], mask_tokens_out[:, 1:],
-                object_score_logits)
+        sel = slice(1, None) if multimask_output else slice(0, 1)
+        tokens = (mask_tokens_out[:, 1:]
+                  if multimask_output and self.cfg.use_multimask_token_for_obj_ptr
+                  else mask_tokens_out[:, 0:1])
+        return masks[:, sel], iou_pred[:, sel], tokens, object_score_logits

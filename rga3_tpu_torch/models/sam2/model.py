@@ -1,6 +1,7 @@
 """SAM2 top-level model, counterpart of `rga3_tpu/models/sam2/model.py`:
 image encoding (`forward_image`) and the language-prompted mask decode
-(`decode_features_with_language`). The memory attention and memory encoder
+(`decode_features_with_language`, and `decode_frames_with_language` from
+the frames, the training path's). The memory attention and memory encoder
 of the tracker are not on the ported path yet."""
 from __future__ import annotations
 
@@ -33,12 +34,22 @@ class Sam2Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.no_mem_embed.dtype
 
-    def forward_image(self, images: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward_image(self, images: torch.Tensor, stop_backbone_grad: bool = False
+                      ) -> Dict[str, List[torch.Tensor]]:
         """images (B, H, W, 3): uint8 (normalized here) or normalized float.
         Returns the FPN features, the two high-resolution levels already
-        projected by the decoder's conv_s0/conv_s1."""
+        projected by the decoder's conv_s0/conv_s1.
+
+        `stop_backbone_grad` cuts the gradient at the trunk + neck: they run
+        under `torch.no_grad()` (a frozen backbone needs no backward, nor
+        its activations kept), while conv_s0/conv_s1, which belong to the
+        trained mask decoder, stay below the cut."""
         x = sam_normalize_maybe(images).to(self.dtype)
-        out = self.image_encoder(x)
+        if stop_backbone_grad:
+            with torch.no_grad():
+                out = self.image_encoder(x)
+        else:
+            out = self.image_encoder(x)
         fpn = list(out["backbone_fpn"])
         fpn[0] = conv1x1(self.sam_mask_decoder.conv_s0, fpn[0])
         fpn[1] = conv1x1(self.sam_mask_decoder.conv_s1, fpn[1])
@@ -46,7 +57,7 @@ class Sam2Model(nn.Module):
 
     def forward_sam_heads(self, backbone_features, high_res_features,
                           language_embd: Optional[torch.Tensor] = None,
-                          multimask_output: bool = True):
+                          multimask_output: bool = True, training: bool = False):
         cfg = self.cfg
         b = backbone_features.shape[0]
         sparse, dense = self.sam_prompt_encoder(batch=b)
@@ -58,15 +69,21 @@ class Sam2Model(nn.Module):
             self.sam_mask_decoder(
                 backbone_features, image_pe, sparse, dense.to(self.dtype),
                 high_res_features, multimask_output=multimask_output,
+                training=training,
             )
         )
         low_res_multimasks = low_res_multimasks.float()
         # select the best-IoU mask at low resolution, then upscale only it
         # (bilinear resize is per channel, so this equals resize-then-select)
-        best = ious.argmax(dim=-1)
-        bidx = torch.arange(b, device=best.device)
-        low_res_masks = low_res_multimasks[bidx, best][:, None]
-        sam_output_token = sam_tokens_out[bidx, best]
+        sam_output_token = sam_tokens_out[:, 0]
+        if multimask_output:
+            best = ious.argmax(dim=-1)
+            bidx = torch.arange(b, device=best.device)
+            low_res_masks = low_res_multimasks[bidx, best][:, None]
+            if sam_tokens_out.shape[1] > 1:
+                sam_output_token = sam_tokens_out[bidx, best]
+        else:
+            low_res_masks = low_res_multimasks
         high_res_masks = resize_bilinear(
             low_res_masks, (cfg.image_size, cfg.image_size)
         )
@@ -82,12 +99,22 @@ class Sam2Model(nn.Module):
             "object_score_logits": object_score_logits,
         }
 
+    def decode_frames_with_language(self, images, language_embd,
+                                    multimask_output: bool = True, training: bool = False,
+                                    stop_backbone_grad: bool = False):
+        """Batched no-memory language decode of frames (T, H, W, 3) with
+        prompts (T, N, C): `forward_image`, then
+        `decode_features_with_language`."""
+        s0, s1, s2 = self.forward_image(images, stop_backbone_grad)["backbone_fpn"]
+        return self.decode_features_with_language(
+            s0, s1, s2, language_embd, multimask_output=multimask_output, training=training)
+
     def decode_features_with_language(self, s0, s1, s2, language_embd,
-                                      multimask_output: bool = True):
+                                      multimask_output: bool = True, training: bool = False):
         """Language decode from precomputed FPN features: every frame is a
         conditioning frame, so the stride-16 feature gets `no_mem_embed`."""
         pix = s2 + self.no_mem_embed.reshape(1, 1, 1, -1).to(s2.dtype)
         return self.forward_sam_heads(
             pix, (s0, s1), language_embd=language_embd,
-            multimask_output=multimask_output,
+            multimask_output=multimask_output, training=training,
         )

@@ -24,8 +24,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
-SOURCES = ("flash_attention.cu", "window_attention.cu", "gemm.cu", "row_ops.cu",
-           "int4_matmul.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "window_attention.cu", "gemm.cu",
+           "row_ops.cu", "int4_matmul.cu")
 HEADERS = ("attention_tile.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,9 +89,13 @@ def _build(target: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.rga3_flash_attention_bf16.argtypes = (
-        [p] * 6 + [i] * 6 + [i64] * 12 + [i, f, p]
+        [p] * 7 + [i] * 6 + [i64] * 12 + [i, f, p]
     )
     lib.rga3_flash_attention_bf16.restype = i
+    lib.rga3_flash_attention_bwd_bf16.argtypes = (
+        [p] * 12 + [i] * 6 + [i64] * 24 + [i, f, p]
+    )
+    lib.rga3_flash_attention_bwd_bf16.restype = i
     lib.rga3_window_attention_bf16.argtypes = (
         [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
     )

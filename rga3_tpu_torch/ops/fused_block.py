@@ -36,10 +36,15 @@ function and are not taken.
 Every wrapper computes its plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernels or raises; it counts the calls that took the
 kernel route in `<wrapper>.launches` and records them in `<wrapper>.shapes`
-(see `ops.attention.reset_launches`). As in the JAX package, the fused
-window and transition blocks are one function each: they chain the three
-kernels directly, and only the global and split window blocks call (and so
-count) `ln_qkv`, `proj_mlp`, `proj_ln` and `mlp_blocked`. The plain
+(see `ops.attention.reset_launches`). On the card each wrapper is
+differentiable through its plain version (`ops.attention.recompute_backward`:
+the backward recomputes the plain function under autograd), as the JAX
+package's custom_vjps (`_fused_block_bwd`, `_global_block_bwd`,
+`_split_window_block_bwd`, `_transition_bwd`) run theirs through XLA. As in
+the JAX package, the fused window and transition blocks are one function
+each: they chain the three kernels directly, and only the global and split
+window blocks call (and so count) `ln_qkv`, `proj_mlp`, `proj_ln` and
+`mlp_blocked`. The plain
 versions (`*_reference`, `reference_*`) round to bf16 where the Pallas
 kernel bodies do: products take bf16 operands and add the bias in f32
 before rounding; LayerNorm statistics are f32 and its output is rounded
@@ -58,8 +63,8 @@ import torch.nn.functional as F
 
 from . import _kernels
 from .attention import (
-    _record, flash_attention, mha_reference, register, window_attention,
-    window_reference,
+    _record, flash_attention, mha_reference, recompute_backward, register,
+    window_attention, window_reference,
 )
 
 EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "res_bf16": 3, "res_f32": 4}
@@ -157,11 +162,22 @@ def gemm(a, w, bias, *, epilogue="bias", residual=None):
         raise ValueError(f"gemm: unsupported shapes a {tuple(a.shape)} w {tuple(w.shape)}")
     if needs_res and residual.shape != a.shape[:-1] + (n,):
         raise ValueError("gemm: the residual must have the output's shape")
+    return recompute_backward(
+        lambda a, w, bias, *r: _gemm(a, w, bias, epilogue, *r),
+        lambda a, w, bias, *r: gemm_reference(a, w, bias, epilogue=epilogue,
+                                              residual=r[0] if r else None),
+        a, w, bias, *((residual,) if needs_res else ()))
+
+
+def _gemm(a, w, bias, epilogue, residual=None):
+    k = a.shape[-1]
+    n = w.shape[0]
+    m = a.numel() // k
     out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _kernels.library().rga3_gemm_bf16(
         a.data_ptr(), k, w.data_ptr(), k, bias.data_ptr(),
-        residual.data_ptr() if needs_res else None, n,
+        None if residual is None else residual.data_ptr(), n,
         out.data_ptr(), n, m, n, k, EPILOGUES[epilogue], stream,
     )
     _kernels.check(err, "gemm")
@@ -181,6 +197,13 @@ def layer_norm(x, g, b, eps):
     rows = x.numel() // d
     if d % 8 or rows == 0 or g.shape != (d,) or b.shape != (d,):
         raise ValueError(f"layer_norm: unsupported shape {tuple(x.shape)}")
+    return recompute_backward(lambda x, g, b: _layer_norm(x, g, b, eps),
+                              lambda x, g, b: layer_norm_reference(x, g, b, eps), x, g, b)
+
+
+def _layer_norm(x, g, b, eps):
+    d = x.shape[-1]
+    rows = x.numel() // d
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels.library().rga3_layer_norm_bf16(
@@ -210,6 +233,13 @@ def window_pool2x2(x, ws: int):
             or x.stride(0) != l * ld or x.data_ptr() % 16):
         raise ValueError(
             f"window_pool2x2: unsupported input {tuple(x.shape)} {x.stride()} ws={ws}")
+    return recompute_backward(lambda x: _window_pool2x2(x, ws),
+                              lambda x: window_pool2x2_reference(x, ws), x)
+
+
+def _window_pool2x2(x, ws):
+    b, l, c = x.shape
+    ld = x.stride(1)
     out = torch.empty((b, l // 4, c), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernels.library().rga3_window_pool2x2_bf16(
@@ -338,7 +368,8 @@ def ln_qkv(x, g, b, w, bias, *, eps=1e-6):
     """LayerNorm -> x @ w.T + bias (the Pallas `_ln_matmul_kernel`)."""
     if x.device.type == "cpu":
         return ln_qkv_reference(x, g, b, w, bias, eps=eps)
-    out = _ln_qkv(_KERNEL, x, g, b, w, bias, eps)
+    out = recompute_backward(lambda *t: _ln_qkv(_KERNEL, *t, eps),
+                             lambda *t: _ln_qkv(_PLAIN, *t, eps), x, g, b, w, bias)
     _record(ln_qkv, (tuple(x.shape), w.shape[0], float(eps)))
     return out
 
@@ -350,8 +381,10 @@ def proj_mlp(attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2, *, eps=1e-6,
     if x.device.type == "cpu":
         return proj_mlp_reference(attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2,
                                   eps=eps, gelu_tanh=gelu_tanh)
-    out = _proj_mlp(_KERNEL, attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2, eps,
-                    gelu_tanh)
+    out = recompute_backward(
+        lambda *t: _proj_mlp(_KERNEL, *t, eps, gelu_tanh),
+        lambda *t: _proj_mlp(_PLAIN, *t, eps, gelu_tanh),
+        attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2)
     _record(proj_mlp, (tuple(x.shape), w1.shape[0], float(eps), bool(gelu_tanh)))
     return out
 
@@ -361,7 +394,9 @@ def proj_ln(attn, x, wproj, bproj, ln2_g, ln2_b, *, eps=1e-6):
     `_proj_ln_kernel`)."""
     if x.device.type == "cpu":
         return proj_ln_reference(attn, x, wproj, bproj, ln2_g, ln2_b, eps=eps)
-    out = _proj_ln(_KERNEL, attn, x, wproj, bproj, ln2_g, ln2_b, eps)
+    out = recompute_backward(lambda *t: _proj_ln(_KERNEL, *t, eps),
+                             lambda *t: _proj_ln(_PLAIN, *t, eps),
+                             attn, x, wproj, bproj, ln2_g, ln2_b)
     _record(proj_ln, (tuple(x.shape), float(eps)))
     return out
 
@@ -371,7 +406,9 @@ def mlp_blocked(ln2y, y, w1, b1, w2, b2, *, gelu_tanh=True):
     `_mlp_blocked_kernel`, whose hidden-dim blocks change nothing here)."""
     if y.device.type == "cpu":
         return mlp_blocked_reference(ln2y, y, w1, b1, w2, b2, gelu_tanh=gelu_tanh)
-    out = _mlp_blocked(_KERNEL, ln2y, y, w1, b1, w2, b2, gelu_tanh)
+    out = recompute_backward(lambda *t: _mlp_blocked(_KERNEL, *t, gelu_tanh),
+                             lambda *t: _mlp_blocked(_PLAIN, *t, gelu_tanh),
+                             ln2y, y, w1, b1, w2, b2)
     _record(mlp_blocked, (tuple(y.shape), w1.shape[0], bool(gelu_tanh)))
     return out
 
@@ -411,6 +448,17 @@ def reference_transition(x, params, *, num_heads, ws, eps=1e-6, scale=None,
                        gelu_variant(gelu_tanh))
 
 
+def _block_call(block, x, params, *args):
+    """`block(_KERNEL, x, params, *args)`, differentiable through
+    `block(_PLAIN, ...)` in x and every tensor of the params dict."""
+    keys = tuple(params)
+
+    def route(o):
+        return lambda x, *vals: block(o, x, dict(zip(keys, vals)), *args)
+
+    return recompute_backward(route(_KERNEL), route(_PLAIN), x, *params.values())
+
+
 def fused_window_block(x, params, *, num_heads, window, eps=1e-6, scale=None,
                        gelu_tanh=None):
     """Windowed transformer block over (B, L, D), window-major (the Pallas
@@ -420,8 +468,8 @@ def fused_window_block(x, params, *, num_heads, window, eps=1e-6, scale=None,
     if x.device.type == "cpu":
         return reference_block(x, params, num_heads=num_heads, window=window, eps=eps,
                                scale=scale, gelu_tanh=gelu_tanh)
-    out = _window_block(_KERNEL, x, params, num_heads, window, eps, scale, gelu_tanh,
-                        split=False)
+    out = _block_call(_window_block, x, params, num_heads, window, eps, scale, gelu_tanh,
+                      False)
     _record(fused_window_block, (tuple(x.shape), params["w1"].shape[0], num_heads,
                                  window, float(eps), float(scale), gelu_tanh))
     return out
@@ -437,8 +485,8 @@ def fused_window_block_split(x, params, *, num_heads, window, eps=1e-6, scale=No
     if x.device.type == "cpu":
         return reference_block(x, params, num_heads=num_heads, window=window, eps=eps,
                                scale=scale, gelu_tanh=gelu_tanh, split=True)
-    out = _window_block(_KERNEL, x, params, num_heads, window, eps, scale, gelu_tanh,
-                        split=True)
+    out = _block_call(_window_block, x, params, num_heads, window, eps, scale, gelu_tanh,
+                      True)
     _record(fused_window_block_split, (tuple(x.shape), params["w1"].shape[0], num_heads,
                                        window, float(eps), float(scale), gelu_tanh))
     return out
@@ -451,7 +499,7 @@ def fused_global_block(x, params, *, num_heads, eps=1e-6, scale=None, gelu_tanh=
     if x.device.type == "cpu":
         return reference_global_block(x, params, num_heads=num_heads, eps=eps, scale=scale,
                                       gelu_tanh=gelu_tanh)
-    out = _global_block(_KERNEL, x, params, num_heads, eps, scale, gelu_tanh)
+    out = _block_call(_global_block, x, params, num_heads, eps, scale, gelu_tanh)
     _record(fused_global_block, (tuple(x.shape), params["w1"].shape[0], num_heads,
                                  float(eps), float(scale), gelu_tanh))
     return out
@@ -473,7 +521,7 @@ def fused_transition_block(x, params, *, num_heads, ws, eps=1e-6, scale=None,
     if x.device.type == "cpu":
         return reference_transition(x, params, num_heads=num_heads, ws=ws, eps=eps,
                                     scale=scale, gelu_tanh=gelu_tanh)
-    out = _transition(_KERNEL, x, params, num_heads, ws, eps, scale, gelu_tanh)
+    out = _block_call(_transition, x, params, num_heads, ws, eps, scale, gelu_tanh)
     _record(fused_transition_block, (tuple(x.shape), c_out, params["w1"].shape[0],
                                      num_heads, ws, float(eps), float(scale), gelu_tanh))
     return out

@@ -20,6 +20,10 @@ as the Pallas body does: per group, two f32 partial dots of x against the
 unpacked nibbles, each multiplied by its group's scale and added to an f32
 sum that is rounded to x's dtype once.
 
+The quantized products are for serving: none of them has a backward (the
+JAX package's int4 pallas_call has no VJP either), and each raises when
+grad is on and its input requires it, rather than pass on a cut gradient.
+
 The int8 products are plain PyTorch, as the JAX package leaves them to
 XLA: weight-only `(x @ q) * scale` in x's dtype, and W8A8 (per-token
 absmax / 127 activations, round half to even, an s8 x s8 -> s32 product by
@@ -137,6 +141,15 @@ def _int4_splits(m: int, half: int, out: int) -> int:
     return max(1, min(-(-264 // strips), chunks // 8))
 
 
+def refuse_grad(name: str, x: torch.Tensor) -> None:
+    """Raise if grad is on and x requires it: a quantized product has no
+    backward."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError(
+            f"{name}: quantized weights are for serving and have no backward; "
+            "call it under torch.no_grad() or train the float model")
+
+
 def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
                 scale_g: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ dequant(packed (in/2, out), scales (groups, out)).
@@ -145,6 +158,7 @@ def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
     contiguous, the packed weight int8 and the scales f32, both contiguous
     and 16-byte aligned, `in` even, any M and `out`. On a CPU tensor it
     computes `int4_matmul_reference`."""
+    refuse_grad("int4_matmul", x)
     half, out = kernel_q4.shape
     in_dim = x.shape[-1]
     if in_dim != 2 * half or scale_g.shape != (in_dim // int4_group(in_dim), out):
@@ -190,6 +204,7 @@ register(int4_matmul)
 
 def int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Weight-only int8: x (..., in) @ dequant(kernel_q (in, out)) in x's dtype."""
+    refuse_grad("int8_matmul", x)
     return (x @ kernel_q.to(x.dtype)) * scale.to(x.dtype)
 
 
@@ -199,6 +214,7 @@ def int8_w8a8_matmul(x: torch.Tensor, kernel_q: torch.Tensor,
     s32 product, dequantized by token scale x channel scale in f32.
     `torch._int_mm` needs M > 16 and K, N multiples of 8: the operands are
     zero-padded to those, which changes no sum."""
+    refuse_grad("int8_w8a8_matmul", x)
     lead, k = x.shape[:-1], x.shape[-1]
     n = kernel_q.shape[1]
     xf = x.reshape(-1, k).float()

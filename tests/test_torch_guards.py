@@ -96,7 +96,7 @@ def test_reset_launches_zeroes_counts_and_calls():
 
 
 def test_kernel_sources_are_listed_and_hashed():
-    assert {"flash_attention.cu", "window_attention.cu", "gemm.cu",
+    assert {"flash_attention.cu", "flash_attention_bwd.cu", "window_attention.cu", "gemm.cu",
             "row_ops.cu", "int4_matmul.cu"} <= set(_kernels.SOURCES)
     for name in _kernels.SOURCES + _kernels.HEADERS:
         assert os.path.exists(os.path.join(_kernels.CSRC, name))
@@ -111,24 +111,71 @@ def _int4_call():
     return tq.int4_matmul
 
 
-@pytest.mark.parametrize("call", [_int4_call], ids=["int4_matmul"])
-def test_cpu_tensors_launch_nothing_in_later_wrappers(call):
+def _flash_bwd_call():
+    q = torch.randn(1, 64, 2, 16, requires_grad=True)
+    tatt.flash_attention(q, q, q, causal=True).sum().backward()
+    o, lse = tatt.mha_reference(q.detach(), q.detach(), q.detach(), return_lse=True)
+    tatt.flash_attention_bwd(q.detach(), q.detach(), q.detach(), o, lse, torch.ones_like(o))
+    return tatt.flash_attention_bwd
+
+
+def _wrapper(name):
     from rga3_tpu_torch.ops import quant as tq
 
-    n0, s0 = tq.int4_matmul.launches, dict(tq.int4_matmul.shapes)
+    return {"int4_matmul": tq.int4_matmul, "flash_attention_bwd": tatt.flash_attention_bwd}[name]
+
+
+@pytest.mark.parametrize("call", [_int4_call, _flash_bwd_call],
+                         ids=["int4_matmul", "flash_attention_bwd"])
+def test_cpu_tensors_launch_nothing_in_later_wrappers(call):
+    name = {_int4_call: "int4_matmul", _flash_bwd_call: "flash_attention_bwd"}[call]
+    n0, s0 = _wrapper(name).launches, dict(_wrapper(name).shapes)
     wrapper = call()
     assert (wrapper.launches, wrapper.shapes) == (n0, s0)
     assert _kernels._lib is None
 
 
-@pytest.mark.parametrize("name", ["int4_matmul"])
+@pytest.mark.parametrize("name", ["int4_matmul", "flash_attention_bwd"])
 def test_reset_launches_covers_later_wrappers(name):
-    from rga3_tpu_torch.ops import quant as tq
-
-    wrapper = getattr(tq, name)
+    wrapper = _wrapper(name)
     wrapper.launches, wrapper.shapes[("k",)] = 5, [5, None]
     tatt.reset_launches()
     assert wrapper.launches == 0 and wrapper.shapes == {}
+
+
+def test_quantized_products_raise_under_grad():
+    """No quantized product has a backward: under grad each raises rather
+    than cut the gradient; under no_grad each computes."""
+    from rga3_tpu_torch.models.qwen25vl.language import QuantLinear
+    from rga3_tpu_torch.ops import quant as tq
+
+    x = torch.randn(3, 128, requires_grad=True)
+    q4, s4 = tq.quantize_int4(torch.randn(128, 48))
+    q8, s8 = tq.quantize_int8(torch.randn(128, 48))
+    calls = [lambda: tq.int4_matmul(x, q4, s4), lambda: tq.int8_matmul(x, q8, s8),
+             lambda: tq.int8_w8a8_matmul(x, q8, s8),
+             lambda: QuantLinear.from_linear(torch.nn.Linear(128, 48), 8)(x)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert call().shape == (3, 48)
+
+
+def test_wrappers_are_differentiable_on_the_cpu():
+    """On the CPU the wrappers compute their plain versions, which autograd
+    runs through: a gradient reaches every input."""
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    q = torch.randn(1, 64, 2, 16, requires_grad=True)
+    k = torch.randn(1, 64, 2, 16, requires_grad=True)
+    (tatt.flash_attention(q, k, k, causal=True).sum()
+     + tatt.window_attention(q, k, k, 16).sum()).backward()
+    assert q.grad.abs().sum() > 0 and k.grad.abs().sum() > 0
+    x = torch.randn(1, 16, 8, requires_grad=True)
+    w = torch.randn(8, 8, requires_grad=True)
+    fb.gemm(x, w, torch.zeros(8), epilogue="gelu_tanh").sum().backward()
+    assert x.grad.abs().sum() > 0 and w.grad.abs().sum() > 0
 
 
 def test_qwen_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

@@ -350,3 +350,172 @@ def test_int4_matmul_rejects_what_it_does_not_take(dev):
         tq.int4_matmul(_bf16(rng, (128, 4), dev).t(), q, s)
     with pytest.raises(ValueError):  # non-contiguous packed weight
         tq.int4_matmul(_bf16(rng, (2, 128), dev), q.t().contiguous().t(), s)
+
+
+# ---- the flash backward (csrc/flash_attention_bwd.cu), through autograd of
+# flash_attention and held against flash_attention_bwd_reference on the
+# plain log-sum-exp. (b, lq, lk, h, hkv, d, causal, segments): the training
+# slice's calls (the LM: B=2, L=512, 28/4 heads, D=128, causal, right
+# padding in a segment of its own; the SAM decoder's image->token
+# attention: lq=4096, lk=7, 8 heads, D=16) and small ones (lk < 16, GQA rep
+# 2 and 7, D 72 / 80, lengths off the 64-row tile, segment runs).
+FLASH_BWD_CASES = [
+    (2, 512, 512, 28, 4, 128, True, "pad"),
+    (8, 4096, 7, 8, 8, 16, False, None),
+    (1, 100, 100, 2, 2, 16, True, "runs"),
+    (2, 130, 130, 4, 2, 72, True, "runs"),
+    (1, 77, 77, 7, 1, 80, False, "runs"),
+    (2, 65, 9, 4, 4, 80, False, None),
+    (1, 200, 200, 28, 4, 128, False, "pad"),
+    (2, 190, 190, 4, 4, 72, False, None),
+]
+
+
+def _segment_ids(rng, kind, b, l, dev):
+    if kind is None:
+        return None
+    if kind == "pad":  # the collate's attention mask: 1 on the text, 0 on the pads
+        seg = np.zeros((b, l), np.int32)
+        for i, n in enumerate(rng.integers(l // 2, l, b)):
+            seg[i, :n] = 1
+        return torch.from_numpy(seg).to(dev)
+    return torch.from_numpy(np.sort(rng.integers(0, 3, (b, l)), axis=1).astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,causal,segs", FLASH_BWD_CASES)
+def test_flash_bwd_matches_plain(dev, b, lq, lk, h, hkv, d, causal, segs):
+    rng = np.random.default_rng(lq + lk + d)
+    q = _bf16(rng, (b, lq, h, d), dev).requires_grad_()
+    k = _bf16(rng, (b, lk, hkv, d), dev).requires_grad_()
+    v = _bf16(rng, (b, lk, hkv, d), dev).requires_grad_()
+    seg = _segment_ids(rng, segs, b, lq, dev)
+    kw = dict(causal=causal, segment_ids=seg)
+    tatt.reset_launches()
+    out = tatt.flash_attention(q, k, v, **kw)
+    do = _bf16(rng, out.shape, dev)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention.launches == 1 and tatt.flash_attention_bwd.launches == 1
+    [(key, (count, recorded))] = tatt.flash_attention_bwd.shapes.items()
+    assert key[0] == (b, lq, h, d) and key[5] is causal and count == 1
+    assert (recorded is None) == (seg is None)
+    with torch.no_grad():
+        ref_out, lse = tatt.mha_reference(q, k, v, **kw, return_lse=True)
+        _, lse_k = tatt._flash_forward(q, k, v, *tatt._segments(q, b, lq, lk, seg, None),
+                                       causal, d ** -0.5, with_lse=True)
+        ref = tatt.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    assert (lse_k - lse).abs().max().item() < 1e-3
+    assert _rel_err(out, ref_out) < TOL
+    for got, want in zip((q.grad, k.grad, v.grad), ref):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got).all()
+    # a query row with one valid key (causal row 0 of each segment) has an
+    # exact dq of zero: P is one-hot and dO . V - D cancels, so both sides
+    # hold rounding noise (~1e-7) there, held to an absolute bound; every
+    # other row is held per row
+    n_keys = tatt._allowed(b, lq, lk, dev, causal, seg, None)
+    n_keys = torch.full((b, lq), lk, device=dev) if n_keys is None else (
+        n_keys.expand(b, 1, lq, lk).sum(-1)[:, 0])
+    multi = n_keys >= 2
+    assert _row_err(q.grad, ref[0], multi) < TOL
+    lone = q.grad[~multi].float()
+    assert lone.numel() == 0 or lone.abs().max().item() <= 1e-3 * ref[0].float().abs().max().item()
+    assert _rel_err(k.grad, ref[1]) < TOL and _rel_err(v.grad, ref[2]) < TOL
+
+
+def _row_err(out, ref, rows):
+    """`_rel_err` over the (b, token) rows selected by a (B, L) mask."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    m = ref.float().abs().amax(-1).clamp_min(1e-6)
+    return (d / m)[rows].max().item()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_strided_and_rows_without_keys(dev):
+    """q, k, v as views of one packed qkv; a q segment with no keys gets
+    zero dq, and (with zero do on those rows) dk / dv match the plain
+    backward."""
+    rng = np.random.default_rng(6)
+    b, l, h, d = 1, 300, 4, 72
+    qkv = _bf16(rng, (b, l, 3, h, d), dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    qs = torch.from_numpy(np.repeat(np.arange(3), 100)[None].astype(np.int32)).to(dev)
+    ks = qs.clone()
+    ks[ks == 2] = 1  # segment 2 has no keys
+    kw = dict(segment_ids=qs, kv_segment_ids=ks)
+    out, lse = tatt._flash_forward(q, k, v, *tatt._segments(q, b, l, l, qs, ks), False,
+                                   d ** -0.5, with_lse=True)
+    do = _bf16(rng, out.shape, dev)
+    no_key = (qs[0] == 2)
+    do[:, no_key] = 0
+    dq, dk, dv = tatt.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    _, lse_r = tatt.mha_reference(q, k, v, **kw, return_lse=True)
+    ref = tatt.flash_attention_bwd_reference(q, k, v, out, lse_r, do, **kw)
+    assert torch.all(dq[:, no_key] == 0)
+    keep = (~no_key).cpu()
+    assert _rel_err(dq, ref[0], rows=keep) < TOL
+    assert _rel_err(dk, ref[1]) < TOL and _rel_err(dv, ref[2]) < TOL
+
+
+def _grads(fn, inputs, gout):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(gout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+def test_window_attention_grad_matches_plain(dev):
+    rng = np.random.default_rng(7)
+    q, k, v = (_bf16(rng, (2, 1024, 4, 72), dev) for _ in range(3))
+    g = _bf16(rng, q.shape, dev)
+    tatt.reset_launches()
+    out, grads = _grads(lambda *t: tatt.window_attention(*t, 64), (q, k, v), g)
+    assert tatt.window_attention.launches == 1 and out.grad_fn is None
+    ref_out, ref = _grads(lambda *t: tatt.window_reference(*t, 64, 72 ** -0.5), (q, k, v), g)
+    assert _rel_err(out, ref_out) < TOL
+    for got, want in zip(grads, ref):
+        assert _rel_err(got, want) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "global"])
+def test_fused_block_grad_matches_plain(dev, kind):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(8)
+    d, h = 144, 2
+    x = _bf16(rng, (2, 1024, d), dev)
+    p = _block_params(rng, d, d, 4 * d, dev)
+    keys = tuple(p)
+    if kind == "window":
+        fused = lambda x, *w: fb.fused_window_block(x, dict(zip(keys, w)), num_heads=h,
+                                                     window=64)
+        plain = lambda x, *w: fb.reference_block(x, dict(zip(keys, w)), num_heads=h, window=64)
+    else:
+        fused = lambda x, *w: fb.fused_global_block(x, dict(zip(keys, w)), num_heads=h)
+        plain = lambda x, *w: fb.reference_global_block(x, dict(zip(keys, w)), num_heads=h)
+    g = _bf16(rng, x.shape, dev)
+    tatt.reset_launches()
+    out, grads = _grads(fused, (x, *p.values()), g)
+    wrapper = fb.fused_window_block if kind == "window" else fb.fused_global_block
+    assert wrapper.launches == 1
+    ref_out, ref = _grads(plain, (x, *p.values()), g)
+    assert _rel_err(out, ref_out) < TOL
+    for name, got, want in zip(("x",) + keys, grads, ref):
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert rel < TOL, (name, rel)
+
+
+@pytest.mark.cuda
+def test_int4_matmul_raises_under_grad(dev):
+    from rga3_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(10)
+    q, s = _int4_weights(rng, 128, 64, dev)
+    x = _bf16(rng, (4, 128), dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tq.int4_matmul(x, q, s)
+    with torch.no_grad():
+        assert tq.int4_matmul(x, q, s).shape == (4, 64)

@@ -97,6 +97,35 @@ def test_decode_features_with_language_matches_jax(pair):
             tout[key].numpy(), np.asarray(jout[key]), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("multimask", [True, False], ids=["multimask", "single"])
+def test_decode_frames_with_language_training_matches_jax(pair, multimask):
+    """The training path's decode (`training=True`, the backbone cut): with
+    one mask the first one is taken (no stability selection), as in JAX;
+    gradients reach conv_s0 / conv_s1 below the cut and not the trunk."""
+    jm, params, tm = pair
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    lang = rng.standard_normal((2, 1, 32)).astype(np.float32)
+    kw = dict(multimask_output=multimask, training=True, stop_backbone_grad=True)
+    dec = jax.jit(lambda p, x, l: jm.apply(
+        p, x, l, method=lambda m, x_, l_: m.decode_frames_with_language(x_, l_, **kw)))
+    jout = dec(params, jnp.asarray(imgs), jnp.asarray(lang))
+    tout = tm.decode_frames_with_language(torch.from_numpy(imgs), torch.from_numpy(lang), **kw)
+    for key in ("low_res_multimasks", "ious", "low_res_masks", "high_res_masks", "obj_ptr"):
+        np.testing.assert_allclose(
+            tout[key].detach().numpy(), np.asarray(jout[key]), atol=ATOL, rtol=0)
+    tm.zero_grad()
+    tout["high_res_masks"].square().mean().backward()
+    dec_p = tm.sam_mask_decoder
+    assert dec_p.conv_s0.weight.grad is not None and dec_p.conv_s1.weight.grad is not None
+    assert all(p.grad is None for p in tm.image_encoder.parameters())
+    tm.zero_grad()
+    if not multimask:
+        with pytest.raises(NotImplementedError):  # the stability selection
+            tm.decode_frames_with_language(torch.from_numpy(imgs), torch.from_numpy(lang),
+                                           multimask_output=False)
+
+
 def test_one_state_dict_runs_fused_and_unfused_alike():
     """One converted state_dict loads into the fused and the unfused port
     models (the parameter tree does not depend on the route) and they agree
