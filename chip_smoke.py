@@ -69,6 +69,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -228,7 +229,7 @@ def check_flash(key, segs, gen, reps):
     desc = (f"B={b} Lq={lq} Lk={lk} H={h}/{hkv} D={d} causal={causal} "
             f"segments={'none' if qseg is None else qseg.unique().numel()}")
     return dict(desc=desc, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound=bound(flops, nbytes))
+                bound=bound(flops, nbytes), flops=flops)
 
 
 def flash_bwd_bound(b, lq, lk, h, hkv, d, pairs, segs):
@@ -345,7 +346,7 @@ def check_window(key, _extra, gen, reps):
     nbytes = 2.0 * (2 * b * l * h * d + 2 * b * kshape[1] * h * d)
     return dict(desc=f"B={b} Lq={l} Lk={kshape[1]} H={h} D={d} window={w} q_window={qw}",
                 err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound=bound(flops, nbytes))
+                bound=bound(flops, nbytes), flops=flops)
 
 
 # ---- the fused Hiera blocks (ops/fused_block.py) and their three kernels
@@ -1338,9 +1339,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.library()
     log(f"build: nvcc {_kernels.build_seconds if _kernels.build_seconds is not None else 0.0:.2f} s")
+    entry = ""
     for line in _kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line.lower():
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line.lower():
+            log(f"  ptxas: {entry}: {line.strip()}")
+            # the tensor-core attention forwards keep every fragment in
+            # registers: a spill there is a design fault, not a slow kernel
+            spills = re.search(r"(\d+) bytes spill stores", line)
+            if ("flash_fwd_mma" in entry or "window_fwd_mma" in entry) and spills \
+                    and int(spills.group(1)):
+                raise AssertionError(f"ptxas spills in {entry}: {line.strip()}")
     log(f"phase build: {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. main path at full width
@@ -1511,7 +1521,9 @@ def main() -> int:
             log(f"kernel {kname} [{r['desc']}]: launches/call {n}, "
                 f"max_abs_err {r['err']:.3e}, row err / max|ref| {r['rel']:.3e} "
                 f"(tol {ROW_TOL}), ms {r['ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
-                f"({r['bound'][1]}), plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}")
+                f"({r['bound'][1]}), plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
+                + (f", TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} (library "
+                   f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else ""))
             for pname, pn in by_path.items():
                 per_path[pname] = per_path.get(pname, 0.0) + pn * r["ms"]
             tot["ms"] += n * r["ms"]

@@ -158,13 +158,23 @@ def set_plain_attention(model: torch.nn.Module, plain: bool) -> None:
 
 
 def _check_cuda_inputs(name: str, *ts: torch.Tensor) -> None:
-    for t in ts:
+    """The kernels' input contract: bf16, the head dim contiguous, one
+    device, a head dim they take; and q, k and v (the first three) with rows
+    the forwards can copy in 16-byte pieces: the data pointer 16-byte
+    aligned, the batch, row and head strides multiples of 8 elements (a dim
+    of size 1 is never stepped)."""
+    for i, t in enumerate(ts):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the CUDA kernel takes bf16, got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous")
         if t.device != ts[0].device:
             raise ValueError(f"{name}: inputs on different devices")
+        if i < 3 and (t.data_ptr() % 16
+                      or any(t.stride(d) % 8 for d in range(3) if t.shape[d] > 1)):
+            raise ValueError(
+                f"{name}: the kernel copies 16-byte rows; got a data pointer "
+                f"{t.data_ptr() % 16} bytes past 16-byte alignment, strides {t.stride()}")
     if ts[0].shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"{name}: head dim {ts[0].shape[-1]} not in {KERNEL_HEAD_DIMS}"

@@ -142,6 +142,96 @@ def test_window_rejects_unsupported_windows(dev):
         tatt.window_attention(q, q, q, 48)
 
 
+# ---- the tensor-core forward tiles (csrc/attention_mma.cuh) ----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 72, 80, 128])
+def test_flash_lse_matches_plain(dev, d):
+    """The forward's log-sum-exp (the backward's residual) against the plain
+    one, causal with segments and GQA: within 1e-2 on rows with a key; -inf
+    (and a zero output) on the rows of a q tile whose segment no kv tile
+    holds, which visits no tile. q tile 3 (rows 192-255) is segment 7, absent
+    from the kv segments; rows 256-319 attend to keys 192-255 (segment 2)."""
+    rng = np.random.default_rng(d + 1)
+    b, l, h, hkv = 2, 320, 4, 2
+    q = _bf16(rng, (b, l, h, d), dev)
+    k = _bf16(rng, (b, l, hkv, d), dev)
+    v = _bf16(rng, (b, l, hkv, d), dev)
+    qs = np.empty((b, l), np.int32)
+    qs[:, :192] = np.sort(rng.integers(0, 3, (b, 192)), axis=1)
+    qs[:, 192:256], qs[:, 256:] = 7, 2
+    ks = qs.copy()
+    ks[:, 192:256] = 2
+    qs, ks = torch.from_numpy(qs).to(dev), torch.from_numpy(ks).to(dev)
+    out, lse = tatt._flash_forward(q, k, v, *tatt._segments(q, b, l, l, qs, ks), True,
+                                   d ** -0.5, with_lse=True)
+    kw = dict(causal=True, segment_ids=qs, kv_segment_ids=ks)
+    ref, lse_ref = tatt.mha_reference(q, k, v, **kw, return_lse=True)
+    allowed = tatt._allowed(b, l, l, dev, True, qs, ks)[:, 0]
+    has_key = allowed.any(-1)  # (B, L)
+    assert lse.shape == (b, h, l) and lse.dtype == torch.float32
+    rows = has_key[:, None, :].expand(b, h, l)
+    assert (lse - lse_ref)[rows].abs().max().item() < 1e-2
+    unvisited = torch.zeros(l, dtype=torch.bool, device=dev)
+    unvisited[192:256] = True
+    assert not has_key[:, unvisited].any()
+    assert torch.all(lse[:, :, unvisited] == -torch.inf)
+    assert torch.all(out[:, unvisited] == 0)
+    assert _row_err(out, ref, has_key) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,h", [(1, 4), (63, 4), (65, 4), (4784, 16)])
+def test_flash_lengths(dev, l, h, causal):
+    """Lengths off and around the 64-row tiles at D = 80, up to the ViT's
+    4784 patches with its 16 heads."""
+    rng = np.random.default_rng(l)
+    q, k, v = (_bf16(rng, (1, l, h, 80), dev) for _ in range(3))
+    out = tatt.flash_attention(q, k, v, causal=causal)
+    ref = tatt.mha_reference(q, k, v, causal=causal)
+    assert torch.isfinite(out).all() and _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,q_window,n_windows", [
+    (16, 16, 81), (16, 4, 81), (64, 64, 17), (64, 16, 17), (256, 256, 5), (256, 64, 5)])
+def test_window_pairs_match_plain(dev, window, q_window, n_windows):
+    """Every window / q_window pair of Hiera-L's blocks at D = 72, k and v
+    views of a packed kv, with query counts off the 64-row block where the
+    pair allows (81 windows of 16 and 17 of 64)."""
+    rng = np.random.default_rng(window + q_window)
+    b, h, lk = 2, 4, window * n_windows
+    kv = _bf16(rng, (b, lk, 2, h, 72), dev)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q = _bf16(rng, (b, n_windows * q_window, h, 72), dev)
+    out = tatt.window_attention(q, k, v, window, q_window=q_window)
+    ref = tatt.window_reference(q, k, v, window, 72 ** -0.5, q_window=q_window)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_attention_rejects_unaligned_rows(dev):
+    """The kernels copy 16-byte rows: an offset view or a stride that is not
+    a multiple of 8 elements raises before any launch."""
+    rng = np.random.default_rng(11)
+    flat = _bf16(rng, (1 + 64 * 2 * 72,), dev)
+    off = flat[1:].view(1, 64, 2, 72)  # data pointer 2 bytes past alignment
+    wide = _bf16(rng, (1, 64, 2, 76), dev)[..., :72]  # head stride 76
+    good = _bf16(rng, (1, 64, 2, 72), dev)
+    tatt.reset_launches()
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            tatt.flash_attention(bad, good, good)
+        with pytest.raises(ValueError, match="16-byte"):
+            tatt.flash_attention(good, bad, good)
+        with pytest.raises(ValueError, match="16-byte"):
+            tatt.window_attention(good, good, bad, 16)
+    assert tatt.flash_attention.launches == tatt.window_attention.launches == 0
+
+
 # ---- the fused-block kernels (ops/fused_block.py) ---------------------------
 
 def _linear_params(rng, n, k, dev):
