@@ -5,7 +5,9 @@
 
 Phases, each timed on its own line:
   1. device: the card, its power limit, TF32 off for the comparisons;
-  2. build: the CUDA kernels from rga3_tpu_torch/csrc with nvcc;
+  2. build: the CUDA kernels from rga3_tpu_torch/csrc with nvcc; ptxas's
+     registers and spills for each kernel, and no spill in the tensor-core
+     kernels (NO_SPILL);
   3. main path: `UniGRSegmentor.segment_video_multi` with UniGR at the release
      width (Qwen2.5-VL-7B + SAM2 Hiera-L at 1024^2, the default `Sam2Config()`
      with every Hiera fusion on), random bf16 weights made on the card from
@@ -51,7 +53,7 @@ Phases, each timed on its own line:
      (`scaled_dot_product_attention` and its backward, `linear`,
      `layer_norm`, `gelu`, `max_pool2d`; for int4_matmul `linear` on the
      weight dequantized to bf16 once: a yardstick only, the port never calls
-     them);
+     them), and TFLOP/s for each attention, backward and gemm call;
   8. reference: a small model with the fused Hiera routes (and the split
      window block) on the card against the same model in f32 on the CPU,
      and a small int4 chat on the card against the same quantized model on
@@ -109,6 +111,8 @@ TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <
 # plain, a tensor differs by the backward's own rounding (~1e-2)
 GRAD_TOL = 0.1
 LOSS_TOL = 1e-2
+# kernels (by name) that ptxas must compile without spills
+NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel")
 
 
 def log(msg: str) -> None:
@@ -304,7 +308,8 @@ def check_flash_bwd(key, segs, gen, reps):
     desc = (f"B={b} Lq={lq} Lk={lk} H={h}/{hkv} D={d} causal={causal} "
             f"segments={'none' if qseg is None else qseg.unique().numel()}")
     return dict(desc=desc, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound=flash_bwd_bound(b, lq, lk, h, hkv, d, pairs, segs))
+                bound=flash_bwd_bound(b, lq, lk, h, hkv, d, pairs, segs),
+                flops=10.0 * h * d * pairs)
 
 
 def lib_window(q, k, v, window, q_window, scale):
@@ -467,10 +472,10 @@ def check_gemm(key, _extra, gen, reps):
         return h if res is None else res + h
 
     nbytes = 2.0 * (m * k + n * k + m * n * (2 if res is not None else 1))
-    return measure(f"M={m} N={n} K={k} epilogue={epi}",
-                   lambda: fb.gemm(a, w, bias, **kw),
-                   lambda: fb.gemm_reference(a, w, bias, **kw), lib,
-                   2.0 * m * n * k, nbytes, reps)
+    r = measure(f"M={m} N={n} K={k} epilogue={epi}", lambda: fb.gemm(a, w, bias, **kw),
+                lambda: fb.gemm_reference(a, w, bias, **kw), lib, 2.0 * m * n * k, nbytes, reps)
+    r["flops"] = 2.0 * m * n * k
+    return r
 
 
 def check_layer_norm(key, _extra, gen, reps):
@@ -1340,17 +1345,28 @@ def main() -> int:
     _kernels.library()
     log(f"build: nvcc {_kernels.build_seconds if _kernels.build_seconds is not None else 0.0:.2f} s")
     entry = ""
+    checked = {name: 0 for name in NO_SPILL}  # entries of each name with a spill line
     for line in _kernels.build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "registers" in line or "spill" in line.lower():
             log(f"  ptxas: {entry}: {line.strip()}")
-            # the tensor-core attention forwards keep every fragment in
-            # registers: a spill there is a design fault, not a slow kernel
+            # the tensor-core kernels (the attention forwards and backward,
+            # the GEMM) keep every fragment and accumulator in registers: a
+            # spill there is a design fault, not a slow kernel
             spills = re.search(r"(\d+) bytes spill stores", line)
-            if ("flash_fwd_mma" in entry or "window_fwd_mma" in entry) and spills \
-                    and int(spills.group(1)):
-                raise AssertionError(f"ptxas spills in {entry}: {line.strip()}")
+            names = [name for name in NO_SPILL if name in entry]
+            if names and spills:
+                if int(spills.group(1)):
+                    raise AssertionError(f"ptxas spills in {entry}: {line.strip()}")
+                for name in names:
+                    checked[name] += 1
+    # a check that saw no ptxas line for a kernel has checked nothing
+    unchecked = [name for name, n in checked.items() if not n]
+    if unchecked:
+        raise AssertionError(f"no ptxas spill line for {unchecked} in the build log "
+                             f"({len(_kernels.build_log)} characters)")
+    log(f"  ptxas: no spill in {checked}")
     log(f"phase build: {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. main path at full width

@@ -1,5 +1,7 @@
 // Tensor-core attention tile shared by the flash- and window-attention
-// forward kernels (flash_attention.cu, window_attention.cu).
+// forward kernels (flash_attention.cu, window_attention.cu); the flash
+// backward (flash_attention_bwd.cu) is built from its copy, ldmatrix and
+// mma.sync pieces.
 //
 // The FlashAttention-2 design on mma.sync. A block of 4 warps (128 threads)
 // owns 64 query rows of one (batch, head), 16 rows a warp:
@@ -42,9 +44,30 @@
 // redesign, at D = 128 first.
 #pragma once
 
-#include "attention_tile.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
 
 namespace rga3 {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// The Pallas kernels' mask value (ops/attention.py DEFAULT_MASK_VALUE).
+constexpr float kMaskValue = -0.7f * FLT_MAX;
+
+// Strides are in elements; the last (head) dim must be contiguous.
+struct Strides {
+  int64_t b, l, h;
+};
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 namespace mma_attn {
 
 using bf16 = __nv_bfloat16;

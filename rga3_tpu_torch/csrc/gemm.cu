@@ -1,5 +1,5 @@
 // Tiled bf16 matrix product with fused epilogues, for Hopper (sm_90a), on
-// the tensor cores through mma.sync.m16n8k16.
+// the tensor cores through TMA and wgmma.
 //
 //   out[m, n] = epilogue(sum_k A[m, k] * W[n, k] + bias[n])
 //
@@ -27,14 +27,31 @@
 // 2*(M*K + N*K + M*N) bytes; with K = 144 or 288 (Hiera stages 1-2) and
 // M ~ 10^5-10^6 tokens that is ~100-200 flops per byte, under the card's
 // ~295 flop/byte balance point, so those products are bound by bytes; with
-// K >= 576 (stages 3-4) they are bound by operations. The design is the
-// classic one for mma.sync: a 128x128 output tile per block of 8 warps
-// (each 64x32; two blocks to an SM, registers capped at 128 a thread), K in
-// steps of 32 through a 4-stage ring of shared memory filled by cp.async, so
-// three tiles' loads are in flight while the tensor cores work on a fourth;
-// fragments are read with ldmatrix from rows padded to 80 bytes, free of
-// bank conflicts. No TMA or wgmma yet: that is for the change that makes it
-// fast.
+// K >= 576 (stages 3-4) they are bound by operations, and only wgmma reaches
+// the tensor cores' full rate. The design is Hopper's usual one: a
+// persistent grid of one block an SM walks the 128 x 144 output tiles (N
+// fastest, so that a 128-row band of A is read once from device memory
+// while W stays in the L2 cache). In each block one producer thread
+// issues TMA loads (cp.async.bulk.tensor.2d, 128-byte swizzle) of the A and
+// W tiles of each 64-deep K step into a 4-stage ring guarded by
+// mbarriers (full: the bytes landed; empty: both consumers are done with
+// the stage); two consumer warpgroups each run wgmma.mma_async.m64n144k16 on
+// 64 rows of the tile, A and W read from shared memory through swizzled
+// descriptors, with one K step's group in flight while the next is issued.
+// The epilogue reads the accumulators, whose per-warp layout is mma.sync's
+// m16n8 one, while the producer already loads the next tile: the rounded
+// sums (and GELU) go to shared memory (rows padded by 16 bytes) and leave in
+// coalesced 16-byte stores, the bf16 residual read in the same pieces, all
+// of a thread's loads in flight at once; the f32 residual is added to the
+// fragments in place. setmaxnreg moves registers from the producer
+// warpgroup to the consumers.
+// TMA zero-fills the ragged edges in M, N and K (K = 144 = 2 * 64 + 16).
+// The tile is 144 wide at every call: each Hiera-L N (144 to 4608) is a
+// multiple of 144, and tiles 192 or 256 wide, chosen per call where they
+// fit, were no faster over the main path's products (tools/
+// bench_gemm_tiles.py on an H100 80GB HBM3 at 700 W: 35.33 ms of products
+// a segmentation call at 144 alone, 35.53 choosing among 256/192/144).
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,212 +61,391 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kThreads = 256;           // 8 warps: 2 along M x 4 along N
-constexpr int kLds = kBK + 8;           // smem row, in bf16: 80 bytes
-constexpr int kChunks = kBM * kBK / 8;  // 16-byte chunks per tile (512)
-constexpr int kStages = 4;              // cp.async ring depth
-constexpr int kStageElems = (kBM + kBN) * kLds;
-constexpr int kSmemBytes = kStages * kStageElems * 2;  // 80 KB: dynamic shared memory
+constexpr int kBM = 128, kBK = 64;  // a K step is one 128-byte swizzled row
+constexpr int kConsumers = 2;       // warpgroups of wgmma, 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer warpgroup
+constexpr int kABytes = kBM * kBK * 2;
+
+constexpr int kBN = 144;     // the output tile's width
+constexpr int kStages = 4;   // the TMA ring
+constexpr int kStageBytes = kABytes + kBN * kBK * 2;  // a multiple of 1024
+// a consumer's 64 output rows staged for coalesced stores, rows padded by 16
+// bytes so that the accumulator writes of a warp miss each other's banks
+constexpr int kStagePitch = kBN + 8;
+constexpr int kOutBytes = 64 * kStagePitch * 2;
+// the ring, the two output tiles, the mbarriers, and slack to align the ring
+// to 1024 bytes
+constexpr int kSmemBytes =
+    kStages * kStageBytes + kConsumers * kOutBytes + 2 * kStages * 8 + 1024;
 
 enum Epilogue { kBias = 0, kGeluTanh = 1, kGeluErf = 2, kResBf16 = 3, kResF32 = 4 };
 
 struct GemmParams {
-  const bf16* a;
-  const bf16* w;
   const bf16* bias;  // (N)
-  const bf16* res;    // (M, N) residual for kResBf16 / kResF32
+  const bf16* res;   // (M, N) residual for kResBf16 / kResF32
   bf16* out;
-  int64_t lda, ldw, ldr, ldo;
+  int64_t ldr, ldo;
   int m, n, k;
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// One box of a 2-D tensor map (inner coordinate first) into shared memory,
+// completing `bytes` on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int inner,
+                                         int outer, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(bar)
+      : "memory");
 }
 
+// wgmma descriptor of a K-major tile with 128-byte rows in the 128-byte
+// swizzle (as TMA writes it): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Keep the compiler from moving reads of the accumulators across the
+// asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
+}
+
+// d += A B^T over one k16 step: A 64 x 16 and B 144 x 16 from shared memory.
+__device__ __forceinline__ void wgmma_m64n144k16(float (&d)[72], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %74, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71"
+        "}, %72, %73, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+
+// 0.5 x (1 + tanh(u)) written as x * sigmoid(2u): one exponential and one
+// division, ~1e-7 relative, with no cancellation where tanh(u) nears -1
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(kBeta * (x + 0.044715f * x * x * x)));
+  const float u = kBeta * (x + 0.044715f * x * x * x);
+  return __fdividef(x, 1.f + __expf(-2.f * u));
 }
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
 
+// bf16(x + y) of two pairs of bf16, added in f32
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t x, uint32_t y) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
+  const __nv_bfloat162 c = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+  return *reinterpret_cast<const uint32_t*>(&c);
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ void cp_async16(bf16* smem, const bf16* gmem, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
-// The 16-byte chunks of one A and one W tile this thread copies: chunk
-// c = threadIdx.x + i * kThreads is row c / 4, columns (c % 4) * 8 + [0, 8).
-// Chunks past M, N or K are zero-filled (K % 8 == 0: a chunk is all in or
-// all out).
-__device__ __forceinline__ void load_stage(const GemmParams& p, int m0, int n0, int k0,
-                                           bf16* as, bf16* ws) {
-  const int kc = (threadIdx.x & 3) * 8;
-  const int kk = k0 + kc;
-  const bool kin = kk < p.k;
-#pragma unroll
-  for (int i = 0; i < kChunks / kThreads; ++i) {
-    const int r = (threadIdx.x + i * kThreads) >> 2;
-    const bool a_in = kin && m0 + r < p.m, w_in = kin && n0 + r < p.n;
-    cp_async16(as + r * kLds + kc, a_in ? p.a + (m0 + r) * p.lda + kk : p.a, a_in);
-    cp_async16(ws + r * kLds + kc, w_in ? p.w + (n0 + r) * p.ldw + kk : p.w, w_in);
-  }
-}
-
+// One pair of columns of the epilogue from the f32 sums, before any
+// residual: bf16(acc + b), or bf16(gelu(f32(bf16(acc + b)))).
 template <int EPI>
-__device__ __forceinline__ __nv_bfloat162 epilogue(const GemmParams& p, float acc0, float acc1,
-                                                   int row, int col) {
-  const float b0 = __bfloat162float(p.bias[col]), b1 = __bfloat162float(p.bias[col + 1]);
-  if (EPI == kBias) return __floats2bfloat162_rn(acc0 + b0, acc1 + b1);
+__device__ __forceinline__ __nv_bfloat162 rounded_sum(float acc0, float acc1, float b0,
+                                                      float b1) {
   if (EPI == kGeluTanh)
     return __floats2bfloat162_rn(gelu_tanh(round_bf16(acc0 + b0)),
                                  gelu_tanh(round_bf16(acc1 + b1)));
   if (EPI == kGeluErf)
     return __floats2bfloat162_rn(gelu_erf(round_bf16(acc0 + b0)),
                                  gelu_erf(round_bf16(acc1 + b1)));
-  const float2 r = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(p.res + row * p.ldr + col));
-  if (EPI == kResBf16)
-    return __floats2bfloat162_rn(r.x + round_bf16(acc0 + b0), r.y + round_bf16(acc1 + b1));
-  return __floats2bfloat162_rn(r.x + b0 + acc0, r.y + b1 + acc1);  // kResF32
+  return __floats2bfloat162_rn(acc0 + b0, acc1 + b1);
 }
 
 template <int EPI>
-__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(GemmParams p) {
-  extern __shared__ uint4 smem4[];  // kStages x (A tile, W tile)
-  bf16* smem = reinterpret_cast<bf16*>(smem4);
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_w, GemmParams p) {
+  constexpr int kChunks = kBN / 8, kIters = 64 * kChunks / 128;  // 16-byte pieces
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzle repeats every 1024 bytes
+  bf16* staged = reinterpret_cast<bf16*>(smem_raw + (ring - raw) + kStages * kStageBytes);
+  const uint32_t full = ring + kStages * kStageBytes + kConsumers * kOutBytes;
+  const uint32_t empty = full + kStages * 8;
 
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64, cols wn*32
+  const int n_tiles = (p.n + kBN - 1) / kBN;
+  const int tiles = (p.m + kBM - 1) / kBM * n_tiles;
   const int ktiles = (p.k + kBK - 1) / kBK;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ktiles) load_stage(p, m0, n0, s * kBK, smem + s * kStageElems,
-                               smem + s * kStageElems + kBM * kLds);
-    cp_async_commit();
-  }
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    bf16* as = smem + (kt % kStages) * kStageElems;
-    bf16* ws = as + kBM * kLds;
-    cp_async_wait_pending();  // this thread's copies of tile kt have landed
-    __syncthreads();  // everyone's have; and tile kt - 1's stage is consumed
-    const int next = kt + kStages - 1;
-    if (next < ktiles) {
-      bf16* an = smem + (next % kStages) * kStageElems;
-      load_stage(p, m0, n0, next * kBK, an, an + kBM * kLds);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);                // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4 * kConsumers);  // one arrival a consumer warp
     }
-    cp_async_commit();
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], as + (wm * 64 + mi * 16 + (lane & 15)) * kLds + ks * 16 +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, ws + (wn * 32 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLds +
-                           ks * 16 + ((lane >> 3) & 1) * 8);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * kBM, n0 = tile % n_tiles * kBN;
+        for (int kt = 0; kt < ktiles; ++kt) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // a fresh barrier passes at once
+          mbar_expect_tx(full + 8 * stage, kStageBytes);  // whole boxes, zero-filled edges included
+          const uint32_t dst = ring + stage * kStageBytes;
+          tma_load(dst, &map_a, kt * kBK, m0, full + 8 * stage);
+          tma_load(dst + kABytes, &map_w, kt * kBK, n0, full + 8 * stage);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
     }
+    return;
   }
 
-  // accumulator fragment: c0, c1 at (row g, cols 2t, 2t+1), c2, c3 at row g+8
+  // the consumers: rows 64 * cw of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = threadIdx.x / 128 - 1, ct = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31, wq = ct >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  bf16* out_rows = staged + cw * 64 * kStagePitch;
+  // 16-byte pieces need 16-byte aligned rows (the pointers are, by the wrapper)
+  const bool vec = p.ldo % 8 == 0 && (EPI != kResBf16 || p.ldr % 8 == 0);
+  int stage = 0, phase = 0;
+  float acc[kBN / 2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * kBM, n0 = tile % n_tiles * kBN;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    // products: one k step's wgmma group stays in flight while the next is
+    // issued; a stage goes back to the producer once its group is done
+    int prev = -1;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(full + 8 * stage, phase);
+      const uint32_t a = ring + stage * kStageBytes + cw * 64 * 128;  // 64 rows of 128 bytes
+      const uint32_t w = ring + stage * kStageBytes + kABytes;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
-      if (col >= p.n) continue;  // N is even: col + 1 < N too
+      for (int k16 = 0; k16 < kBK / 16; ++k16)  // 32 bytes along the swizzled rows
+        wgmma_m64n144k16(acc, sw128_desc(a + 32 * k16), sw128_desc(w + 32 * k16));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(acc);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+      }
+      prev = stage;
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * prev);
+
+    // accumulator layout per warp: n8 tile j holds (row g, cols 2t, 2t+1)
+    // in acc[4j], acc[4j + 1] and row g + 8 in acc[4j + 2], acc[4j + 3]
+    if constexpr (EPI == kResF32) {  // out = bf16(res + b + acc), in place
+      const int row0 = m0 + cw * 64 + wq * 16 + g;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + half * 8;
-        if (row >= p.m) continue;
-        *reinterpret_cast<__nv_bfloat162*>(p.out + row * p.ldo + col) =
-            epilogue<EPI>(p, acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1], row, col);
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + 8 * j + t2;
+        if (col >= p.n) continue;  // N is even: col + 1 < N too
+        const float b0 = __bfloat162float(p.bias[col]), b1 = __bfloat162float(p.bias[col + 1]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 8 * half;
+          if (row >= p.m) continue;
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(p.res + (int64_t)row * p.ldr + col));
+          *reinterpret_cast<__nv_bfloat162*>(p.out + (int64_t)row * p.ldo + col) =
+              __floats2bfloat162_rn(r.x + b0 + acc[4 * j + 2 * half],
+                                    r.y + b1 + acc[4 * j + 2 * half + 1]);
+        }
+      }
+    } else {
+      // the bf16 residual's pieces first, all in flight at once, so that
+      // their latency is paid once and under the writes to shared memory
+      uint4 x[EPI == kResBf16 ? kIters : 1];
+      if constexpr (EPI == kResBf16) {
+        if (vec) {
+#pragma unroll
+          for (int i = 0; i < kIters; ++i) {
+            const int c = ct + 128 * i, r = c / kChunks, col = n0 + 8 * (c % kChunks);
+            const int row = m0 + cw * 64 + r;
+            if (row < p.m && col + 8 <= p.n)
+              x[i] = __ldg(reinterpret_cast<const uint4*>(p.res + (int64_t)row * p.ldr + col));
+          }
+        }
+      }
+      bar_sync(1 + cw, 128);  // the previous tile's rows are out
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + 8 * j + t2;
+        if (col >= p.n) continue;
+        const float b0 = __bfloat162float(p.bias[col]), b1 = __bfloat162float(p.bias[col + 1]);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<__nv_bfloat162*>(out_rows + (wq * 16 + g + 8 * half) * kStagePitch +
+                                             8 * j + t2) =
+              rounded_sum<EPI>(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1], b0, b1);
+      }
+      bar_sync(1 + cw, 128);
+      // the rows out in 16-byte pieces: out = the staged value, plus the
+      // bf16 residual rounded once more (bf16(res + bf16(acc + b)))
+#pragma unroll
+      for (int i = 0; i < kIters; ++i) {
+        const int c = ct + 128 * i, r = c / kChunks, col = n0 + 8 * (c % kChunks);
+        const int row = m0 + cw * 64 + r;
+        if (row >= p.m || col >= p.n) continue;
+        const bf16* src = out_rows + r * kStagePitch + (col - n0);
+        bf16* dst = p.out + (int64_t)row * p.ldo + col;
+        if (vec && col + 8 <= p.n) {
+          uint4 h = *reinterpret_cast<const uint4*>(src);
+          if constexpr (EPI == kResBf16)
+            h = make_uint4(add_bf16x2(x[i].x, h.x), add_bf16x2(x[i].y, h.y),
+                           add_bf16x2(x[i].z, h.z), add_bf16x2(x[i].w, h.w));
+          *reinterpret_cast<uint4*>(dst) = h;
+          continue;
+        }
+        // N or a row stride off a multiple of 8: pairs
+        for (int e = 0; e < 8 && col + e < p.n; e += 2) {
+          uint32_t h = *reinterpret_cast<const uint32_t*>(src + e);
+          if (EPI == kResBf16)
+            h = add_bf16x2(*reinterpret_cast<const uint32_t*>(p.res + (int64_t)row * p.ldr +
+                                                              col + e),
+                           h);
+          *reinterpret_cast<uint32_t*>(dst + e) = h;
+        }
       }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime, so that the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (rows, k) bf16 matrix with row stride `ld` elements,
+// read in boxes of `box_rows` x 64 in the 128-byte swizzle; out of range
+// reads are zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int k, int64_t ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int EPI>
-cudaError_t launch_one(const GemmParams& p, cudaStream_t stream) {
+cudaError_t launch(const GemmParams& p, const void* a, int64_t lda, const void* w,
+                   int64_t ldw, cudaStream_t stream) {
   static const cudaError_t set = cudaFuncSetAttribute(
       gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (set != cudaSuccess) return set;
-  const dim3 grid((p.n + kBN - 1) / kBN, (p.m + kBM - 1) / kBM);
-  gemm_kernel<EPI><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  CUtensorMap map_a, map_w;
+  if (!make_map(&map_a, a, p.m, p.k, lda, kBM) || !make_map(&map_w, w, p.n, p.k, ldw, kBN))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (int64_t)(p.m + kBM - 1) / kBM * ((p.n + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  gemm_kernel<EPI><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_w, p);
   return cudaGetLastError();
-}
-
-cudaError_t launch(const GemmParams& p, int epi, cudaStream_t stream) {
-  switch (epi) {
-    case kBias: return launch_one<kBias>(p, stream);
-    case kGeluTanh: return launch_one<kGeluTanh>(p, stream);
-    case kGeluErf: return launch_one<kGeluErf>(p, stream);
-    case kResBf16: return launch_one<kResBf16>(p, stream);
-    case kResF32: return launch_one<kResF32>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 }  // namespace rga3
 
 // Plain C entry point for ctypes. Leading dims are in elements. K must be a
-// multiple of 8, N even, lda and ldw multiples of 8, ldr and ldo even, a and
-// w 16-byte aligned; bias bf16 (N); res given for the residual epilogues. M
-// up to 65535 * 128 rows. Returns a cudaError_t (0 on success).
+// multiple of 8, N even, lda and ldw multiples of 8, ldr and ldo even; a, w
+// and out 16-byte aligned (TMA reads a and w), which the wrapper checks; bias
+// bf16 (N); res given for the residual epilogues. M, N < 2^31. Returns a
+// cudaError_t (0 on success).
 extern "C" int rga3_gemm_bf16(const void* a, int64_t lda, const void* w, int64_t ldw,
                               const void* bias, const void* res, int64_t ldr, void* out,
                               int64_t ldo, int m, int n, int k, int epilogue, void* stream) {
@@ -257,20 +453,24 @@ extern "C" int rga3_gemm_bf16(const void* a, int64_t lda, const void* w, int64_t
   const bool needs_res = epilogue == kResBf16 || epilogue == kResF32;
   if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 2 || lda % 8 || ldw % 8 || ldo % 2 ||
       (needs_res && (res == nullptr || ldr % 2)) || bias == nullptr ||
-      (m + kBM - 1) / kBM > 65535)
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return cudaErrorInvalidValue;
   GemmParams p;
-  p.a = static_cast<const bf16*>(a);
-  p.w = static_cast<const bf16*>(w);
   p.bias = static_cast<const bf16*>(bias);
   p.res = static_cast<const bf16*>(res);
   p.out = static_cast<bf16*>(out);
-  p.lda = lda;
-  p.ldw = ldw;
   p.ldr = ldr;
   p.ldo = ldo;
   p.m = m;
   p.n = n;
   p.k = k;
-  return launch(p, epilogue, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kBias: return launch<kBias>(p, a, lda, w, ldw, s);
+    case kGeluTanh: return launch<kGeluTanh>(p, a, lda, w, ldw, s);
+    case kGeluErf: return launch<kGeluErf>(p, a, lda, w, ldw, s);
+    case kResBf16: return launch<kResBf16>(p, a, lda, w, ldw, s);
+    case kResF32: return launch<kResF32>(p, a, lda, w, ldw, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

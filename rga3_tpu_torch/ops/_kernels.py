@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "window_attention.cu", "gemm.cu",
            "row_ops.cu", "int4_matmul.cu")
-HEADERS = ("attention_tile.cuh", "attention_mma.cuh")
+HEADERS = ("attention_mma.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # of this process's build, if it built
-build_log: str = ""  # nvcc's output (ptxas register/smem lines)
+build_log: str = ""  # nvcc's output (ptxas register/smem lines), kept beside the library
 
 
 def _nvcc() -> str:
@@ -82,6 +82,7 @@ def _build(target: Path) -> None:
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        target.with_suffix(".log").write_text(build_log)
         os.replace(tmp_lib, target)  # atomic: concurrent builds agree
     build_seconds = time.perf_counter() - t0
 
@@ -96,6 +97,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p] * 12 + [i] * 6 + [i64] * 24 + [i, f, p]
     )
     lib.rga3_flash_attention_bwd_bf16.restype = i
+    lib.rga3_flash_attention_bwd_scratch_words.argtypes = [i] * 6
+    lib.rga3_flash_attention_bwd_scratch_words.restype = i64
     lib.rga3_window_attention_bf16.argtypes = (
         [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
     )
@@ -112,11 +115,13 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this tree has none."""
-    global _lib
+    global _lib, build_log
     if _lib is None:
         target = BUILD_DIR / f"librga3_kernels_{_digest()}.so"
-        if not target.exists():
+        if not (target.exists() and target.with_suffix(".log").exists()):
             _build(target)
+        else:  # built by an earlier process
+            build_log = target.with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(target))
         _bind(lib)
         _lib = lib

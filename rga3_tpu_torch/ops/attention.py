@@ -158,20 +158,19 @@ def set_plain_attention(model: torch.nn.Module, plain: bool) -> None:
 
 
 def _check_cuda_inputs(name: str, *ts: torch.Tensor) -> None:
-    """The kernels' input contract: bf16, the head dim contiguous, one
-    device, a head dim they take; and q, k and v (the first three) with rows
-    the forwards can copy in 16-byte pieces: the data pointer 16-byte
-    aligned, the batch, row and head strides multiples of 8 elements (a dim
-    of size 1 is never stepped)."""
-    for i, t in enumerate(ts):
+    """The kernels' input contract for every tensor given (q, k and v; for
+    the backward also o and do): bf16, the head dim contiguous, one device,
+    a head dim they take, and rows the kernels can copy in 16-byte pieces:
+    the data pointer 16-byte aligned, the batch, row and head strides
+    multiples of 8 elements (a dim of size 1 is never stepped)."""
+    for t in ts:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the CUDA kernel takes bf16, got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous")
         if t.device != ts[0].device:
             raise ValueError(f"{name}: inputs on different devices")
-        if i < 3 and (t.data_ptr() % 16
-                      or any(t.stride(d) % 8 for d in range(3) if t.shape[d] > 1)):
+        if t.data_ptr() % 16 or any(t.stride(d) % 8 for d in range(3) if t.shape[d] > 1):
             raise ValueError(
                 f"{name}: the kernel copies 16-byte rows; got a data pointer "
                 f"{t.data_ptr() % 16} bytes past 16-byte alignment, strides {t.stride()}")
@@ -284,8 +283,9 @@ def flash_attention_bwd(
     forward's log-sum-exp `lse` (B, H, Lq, f32) and the output gradient do.
 
     On a CUDA tensor it launches `csrc/flash_attention_bwd.cu` (bf16 q, k,
-    v, o and do, the head dims of the forward; dq / dk / dv contiguous);
-    on a CPU tensor it computes `flash_attention_bwd_reference`."""
+    v, o and do with 16-byte aligned rows, the head dims of the forward;
+    dq / dk / dv contiguous); on a CPU tensor it computes
+    `flash_attention_bwd_reference`."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     if causal and lq != lk:
@@ -309,12 +309,14 @@ def flash_attention_bwd(
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
-    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = _kernels.library()
+    # f32 scratch: delta, then the dK / dV partials of the split grid
+    scratch = torch.empty(lib.rga3_flash_attention_bwd_scratch_words(b, lq, lk, h, hkv, d),
+                          dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rga3_flash_attention_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
         None if kv_seg is None else kv_seg.data_ptr(),
         b, lq, lk, h, hkv, d,

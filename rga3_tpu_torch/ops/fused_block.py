@@ -7,8 +7,8 @@ H100 block's shared memory, so the port computes the same functions, with
 the same bf16 rounding points, as chains of three kernels through device
 memory:
 
-  * `gemm` launches `csrc/gemm.cu`: a tensor-core bf16 product with a
-    bias, GELU or residual epilogue;
+  * `gemm` launches `csrc/gemm.cu`: a bf16 product on TMA and wgmma with
+    a bias, GELU or residual epilogue;
   * `layer_norm` (whose bf16 output is the operand the Pallas bodies
     multiply after each LayerNorm) and `window_pool2x2` launch
     `csrc/row_ops.cu`;
@@ -146,9 +146,10 @@ def gemm(a, w, bias, *, epilogue="bias", residual=None):
     sum, a bf16 add); "res_f32" (residual + bias + the f32 product, rounded
     once). `residual` is (..., N).
 
-    On a CUDA tensor it launches `csrc/gemm.cu` (bf16 and contiguous, the
-    bias too; K a multiple of 8, N even); on a CPU tensor it computes
-    `gemm_reference`."""
+    On a CUDA tensor it launches `csrc/gemm.cu` (bf16, contiguous and
+    16-byte aligned, the bias and residual too, since TMA reads a and w;
+    K a multiple of 8, N even) or raises ValueError before any launch; on
+    a CPU tensor it computes `gemm_reference`."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"gemm: unknown epilogue {epilogue!r}")
     if a.device.type == "cpu":

@@ -239,10 +239,14 @@ def _linear_params(rng, n, k, dev):
     return w.contiguous(), _bf16(rng, (n,), dev) * 0.1
 
 
-# (m, n, k): K = 144 (9*16, not a multiple of 32), N not a power of two, M
-# off the 128-row tile; the widest K and N of Hiera-L
+# (m, n, k): K = 144 (9*16, not a multiple of 32, a ragged 64-deep TMA
+# step), N not a power of two, M off the 128-row tile; the widest K and N of
+# Hiera-L; the four stage-3 products (M = 32768) the main path launches most;
+# N = 144 and 432, whole tiles of the 144-wide tile; N = 150, even but not a
+# multiple of 8 (the output leaves in pairs, not 16-byte pieces)
 GEMM_SHAPES = [(300, 432, 144), (1000, 144, 288), (257, 1728, 576), (130, 4608, 1152),
-               (128, 1152, 4608)]
+               (128, 1152, 4608), (32768, 2304, 576), (32768, 576, 2304),
+               (32768, 1728, 576), (32768, 576, 576), (1000, 144, 144), (200, 150, 144)]
 
 
 @pytest.mark.cuda
@@ -261,6 +265,49 @@ def test_gemm_matches_plain(dev, m, n, k, epilogue):
     ref = fb.gemm_reference(a, w, bias, epilogue=epilogue, residual=res)
     assert out.shape == ref.shape == (m, n) and torch.isfinite(out).all()
     assert _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_gemm_beyond_the_old_grid_limit(dev):
+    """More rows than 65535 tiles of 128: the persistent grid walks them
+    all."""
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(12)
+    m, n, k = 65535 * 128 + 72, 16, 16
+    a = _bf16(rng, (m, k), dev)
+    w, bias = _linear_params(rng, n, k, dev)
+    out = fb.gemm(a, w, bias)
+    ref = fb.gemm_reference(a, w, bias)
+    assert out.shape == (m, n) and torch.isfinite(out).all()
+    assert _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_gemm_rejects_unaligned_pointers(dev):
+    """TMA reads 16-byte aligned rows: an offset view of a, w or the
+    residual raises ValueError before any launch."""
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(13)
+    m, n, k = 64, 48, 32
+    a = _bf16(rng, (m, k), dev)
+    w, bias = _linear_params(rng, n, k, dev)
+    res = _bf16(rng, (m, n), dev)
+
+    def offset(t):  # the same values, 2 bytes past 16-byte alignment
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    tatt.reset_launches()
+    for args in ((offset(a), w, res), (a, offset(w), res), (a, w, offset(res))):
+        with pytest.raises(ValueError, match="16-byte"):
+            fb.gemm(args[0], args[1], bias, epilogue="res_bf16", residual=args[2])
+    assert fb.gemm.launches == 0
+    out = fb.gemm(a, w, bias, epilogue="res_bf16", residual=res)
+    assert _rel_err(out, fb.gemm_reference(a, w, bias, epilogue="res_bf16", residual=res)) < TOL
 
 
 @pytest.mark.cuda
@@ -458,6 +505,12 @@ FLASH_BWD_CASES = [
     (2, 65, 9, 4, 4, 80, False, None),
     (1, 200, 200, 28, 4, 128, False, "pad"),
     (2, 190, 190, 4, 4, 72, False, None),
+    # the decoder call as the train step makes it (Lk = 9: 9 of 64 kv rows);
+    # causal q ranges split into four chunks (rep 1, segment runs); rep 7
+    # with the q range split into four chunks
+    (8, 4096, 9, 8, 8, 16, False, None),
+    (1, 1024, 1024, 2, 2, 80, True, "runs"),
+    (1, 1024, 77, 7, 1, 72, False, None),
 ]
 
 
@@ -512,6 +565,32 @@ def test_flash_bwd_matches_plain(dev, b, lq, lk, h, hkv, d, causal, segs):
     lone = q.grad[~multi].float()
     assert lone.numel() == 0 or lone.abs().max().item() <= 1e-3 * ref[0].float().abs().max().item()
     assert _rel_err(k.grad, ref[1]) < TOL and _rel_err(v.grad, ref[2]) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,causal,segs", [
+    (2, 512, 512, 28, 4, 128, True, "pad"), (8, 4096, 9, 8, 8, 16, False, None)])
+def test_flash_bwd_is_deterministic(dev, b, lq, lk, h, hkv, d, causal, segs):
+    """The split grid's partials are summed in a fixed order: two launches
+    give the same bits (the decoder call runs on several q chunks)."""
+    from rga3_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(14)
+    q = _bf16(rng, (b, lq, h, d), dev)
+    k = _bf16(rng, (b, lk, hkv, d), dev)
+    v = _bf16(rng, (b, lk, hkv, d), dev)
+    seg = _segment_ids(rng, segs, b, lq, dev)
+    q_seg, kv_seg = tatt._segments(q, b, lq, lk, seg, None)
+    o, lse = tatt._flash_forward(q, k, v, q_seg, kv_seg, causal, d ** -0.5, with_lse=True)
+    do = _bf16(rng, o.shape, dev)
+    kw = dict(causal=causal, segment_ids=seg)
+    first = tatt.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    second = tatt.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    words = _kernels.library().rga3_flash_attention_bwd_scratch_words(b, lq, lk, h, hkv, d)
+    chunks = (words - (b * h * lq + 3) // 4 * 4) // (2 * b * h * lk * d)
+    assert chunks == (1 if lk > 9 else 5)
 
 
 def _row_err(out, ref, rows):
