@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py [--seed N]
 
+It runs itself again with PYTHONHASHSEED = N unless it already has it: the
+processor's word tokenizer maps words through Python's str hash, so that a
+run is reproducible from the seed only with it fixed.
+
 Phases, each timed on its own line:
   1. device: the card, its power limit, TF32 off for the comparisons;
   2. build: the CUDA kernels from rga3_tpu_torch/csrc with nvcc; ptxas's
@@ -53,7 +57,9 @@ Phases, each timed on its own line:
      (`scaled_dot_product_attention` and its backward, `linear`,
      `layer_norm`, `gelu`, `max_pool2d`; for int4_matmul `linear` on the
      weight dequantized to bf16 once: a yardstick only, the port never calls
-     them), and TFLOP/s for each attention, backward and gemm call;
+     them), the share of its bound, and TFLOP/s for each attention,
+     backward, gemm and int4 call; each int4 call is launched twice and
+     must give equal bits;
   8. reference: a small model with the fused Hiera routes (and the split
      window block) on the card against the same model in f32 on the CPU,
      and a small int4 chat on the card against the same quantized model on
@@ -112,7 +118,8 @@ TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <
 GRAD_TOL = 0.1
 LOSS_TOL = 1e-2
 # kernels (by name) that ptxas must compile without spills
-NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel")
+NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel",
+            "int4_tile_kernel")
 
 
 def log(msg: str) -> None:
@@ -669,6 +676,9 @@ def check_int4(key, _extra, gen, reps):
     y, ref = tq.int4_matmul(x, q, s), tq.int4_matmul_reference(x, q, s)
     if y.shape != ref.shape or not torch.isfinite(y).all():
         raise AssertionError(f"int4_matmul {key}: output non-finite or of the wrong shape")
+    # the split sum runs in a fixed order: a second launch gives equal bits
+    if not torch.equal(y, tq.int4_matmul(x, q, s)):
+        raise AssertionError(f"int4_matmul {key}: two launches differ")
     rel, err = row_rel_err(y, ref, torch.ones(m, dtype=torch.bool, device="cuda"))
     if rel > ROW_TOL:
         raise AssertionError(f"int4_matmul {key}: row error {rel} > {ROW_TOL} of max|ref|")
@@ -684,8 +694,10 @@ def check_int4(key, _extra, gen, reps):
     lib_ms = time_graph(lambda w: F.linear(x, w), lib_copies, reps)
     del lib_copies, wd
     nbytes = 2.0 * m * in_dim + wbytes + 2.0 * m * out
-    return dict(desc=f"M={m} in={in_dim} out={out}", err=err, rel=rel, ms=ms,
-                plain_ms=plain_ms, lib_ms=lib_ms, bound=bound(2.0 * m * in_dim * out, nbytes))
+    flops = 2.0 * m * in_dim * out
+    return dict(desc=f"M={m} in={in_dim} out={out} splits {tq.int4_splits(m, in_dim, out)}",
+                err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                bound=bound(flops, nbytes), flops=flops)
 
 
 # name, check, source, the TPU kernel it replaces
@@ -1290,10 +1302,26 @@ def device_breakdown(run, top: int = 20) -> float:
 # --------------------------------------------------------------------------
 
 
+def hash_seed_env(seed: int, environ) -> dict | None:
+    """The environment to run this script again in, or None if it already
+    runs in it: Python's str hash, salted per process unless PYTHONHASHSEED
+    is set, maps the words of the prompts to token ids (the processor's
+    word tokenizer), so that without it each run prompts the model with
+    other ids and its outputs are not reproducible from the seed."""
+    if environ.get("PYTHONHASHSEED") == str(seed):
+        return None
+    return {**environ, "PYTHONHASHSEED": str(seed)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    env = hash_seed_env(args.seed, os.environ)
+    if env is not None:
+        sys.stdout.flush()
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__), *sys.argv[1:]],
+                  env)
 
     import torch
 
@@ -1537,7 +1565,8 @@ def main() -> int:
             log(f"kernel {kname} [{r['desc']}]: launches/call {n}, "
                 f"max_abs_err {r['err']:.3e}, row err / max|ref| {r['rel']:.3e} "
                 f"(tol {ROW_TOL}), ms {r['ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
-                f"({r['bound'][1]}), plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
+                f"({r['bound'][1]}), share of bound {r['bound'][0] / r['ms']:.3f}, "
+                f"plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
                 + (f", TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} (library "
                    f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else ""))
             for pname, pn in by_path.items():

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "window_attention.cu", "gemm.cu",
            "row_ops.cu", "int4_matmul.cu")
-HEADERS = ("attention_mma.cuh",)
+HEADERS = ("attention_mma.cuh", "tma_wgmma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -111,6 +111,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rga3_window_pool2x2_bf16.restype = i
     lib.rga3_int4_matmul_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.rga3_int4_matmul_bf16.restype = i
+    lib.rga3_int4_matmul_workspace_words.argtypes = [i] * 3
+    lib.rga3_int4_matmul_workspace_words.restype = i64
 
 
 def library() -> ctypes.CDLL:

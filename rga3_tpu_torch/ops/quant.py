@@ -36,6 +36,7 @@ the next one is quantized.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -130,15 +131,58 @@ def int4_matmul_reference(x: torch.Tensor, kernel_q4: torch.Tensor,
     return y.to(x.dtype).reshape(*lead, out)
 
 
-def _int4_splits(m: int, half: int, out: int) -> int:
-    """K splits of the decode kernel (M <= 4): enough 128-column strips x
-    splits to give each of the 132 SMs two blocks, each split keeping at
-    least 8 groups of 32 packed rows (one per warp)."""
-    if m > 4:
+# csrc/int4_matmul.cu's TMA tile at decode (M <= 4): a work unit is a range
+# of stages of 64 packed rows x 128 output columns, or 144 where 128-column
+# units would overflow one an SM and 144-column ones do not
+INT4_STAGE_ROWS = 64
+
+
+def int4_decode_cols(out: int, sms: int = 132) -> int:
+    """Output columns of a decode unit, as the C entry point picks them."""
+    return 144 if -(-out // 128) > sms >= -(-out // 144) else 128
+
+
+@functools.lru_cache(maxsize=None)
+def int4_splits(m: int, in_dim: int, out: int, sms: int = 132) -> int:
+    """Splits of the groups of a decode product (M <= 4) over units whose
+    f32 partials the kernel adds in a fixed order: the fewest that give the
+    card 0.8 units an SM, each unit at least two stages (a one-stage unit
+    pays a partial's write and sum for 12 KB of loads), or else the most
+    such. Decode calls are a few µs, so one unit an SM beats two short ones
+    and a second round; measured by `tools/bench_int4.py --sweep`. 1 for a
+    prefill and for shapes that take the generic tile (in or out not a
+    multiple of 16)."""
+    if m > 4 or in_dim % 16 or out % 16:
         return 1
-    strips = -(-out // 128)
-    chunks = -(-half // 32)
-    return max(1, min(-(-264 // strips), chunks // 8))
+    stages = -(-in_dim // 2 // INT4_STAGE_ROWS)
+    tiles = -(-out // int4_decode_cols(out, sms))
+    splits = sorted({-(-stages // per) for per in range(min(2, stages), stages + 1)})
+    return next((s for s in splits if tiles * s >= 0.8 * sms), splits[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_workspace_words(m: int, out: int, splits: int) -> int:
+    return _kernels.library().rga3_int4_matmul_workspace_words(m, out, splits)
+
+
+_workspaces: Dict[int, torch.Tensor] = {}
+
+
+def _int4_workspace(device: torch.device, words: int) -> torch.Tensor:
+    """The split calls' workspace on `device`: the kernel's arrival counters
+    (zeroed here once; each call leaves them zero) and room for its f32
+    partials, grown when a call needs more. The port issues its products on
+    one stream, so calls never overlap in time."""
+    ws = _workspaces.get(device.index)
+    if ws is None or ws.numel() < words:
+        ws = torch.zeros(max(words, 1 << 20), dtype=torch.int32, device=device)
+        _workspaces[device.index] = ws
+    return ws
 
 
 def refuse_grad(name: str, x: torch.Tensor) -> None:
@@ -184,10 +228,10 @@ def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
     y = torch.empty((m, out), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y.reshape(*lead, out)
-    splits = _int4_splits(m, half, out)
-    ws = (torch.empty((splits, m, out), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    splits = int4_splits(m, in_dim, out, _sm_count(x.device.index))
     lib = _kernels.library()
+    ws = (_int4_workspace(x.device, _int4_workspace_words(m, out, splits))
+          if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.rga3_int4_matmul_bf16(
         x.data_ptr(), kernel_q4.data_ptr(), scale_g.data_ptr(), y.data_ptr(),

@@ -59,7 +59,8 @@ def build(src: Path, tmp: Path, nvcc_flags) -> dict:
         cu = tmp / f"gemm_{name}.cu"
         cu.write_text(body)
         procs[name] = subprocess.Popen(
-            ["nvcc", *nvcc_flags, "-shared", str(cu), "-o", str(tmp / f"{name}.so")],
+            ["nvcc", *nvcc_flags, "-I", str(src.parent), "-shared", str(cu), "-o",
+             str(tmp / f"{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():

@@ -439,10 +439,26 @@ def test_fused_kernels_reject_what_they_do_not_take(dev):
         tatt.window_attention(q, k, k, 64, q_window=32)
 
 
-# ---- the int4 dequant-matmul (csrc/int4_matmul.cu): M on both launch
-# variants (<= 4 the GEMV, split over K when the columns are few; > 4 the
-# tensor-core tile, ragged at 17 and 300), group-32 scales (64, 3584, 18944)
-# and per-channel scales (96), out ragged against the 128-column strips (200)
+# ---- the int4 dequant-matmul (csrc/int4_matmul.cu). A grid of M (<= 4 the
+# decode tile, > 4 the prefill tile, ragged at 17 and 300), group-32 scales
+# (64, 3584, 18944) and per-channel scales (96), out ragged against the
+# 128-column tiles (200: the generic tile); then the Qwen2.5-VL-7B LM's
+# projections: prefill at the tile's token boundaries (64, 128 rows), a
+# chat prompt (1280) and a ragged batch of four (5111); decode with its
+# split sum (out 512, 3584) and without (18944, the lm_head's 152064);
+# per-channel scales with a stage half empty (in 96). Each case is launched
+# twice and must give equal bits; a split call leaves the workspace's
+# counters zero.
+INT4_GRID = [(m, i, o) for m in (1, 4, 16, 17, 300) for i in (64, 96, 3584, 18944)
+             for o in (200, 512, 3584)]
+INT4_LM = [(m, i, o) for m in (5, 8, 64, 65, 128, 129, 300, 1280)
+           for i, o in ((3584, 512), (3584, 3584), (18944, 3584))]
+INT4_LM += [(5, 3584, 18944), (129, 3584, 18944), (1280, 3584, 18944),
+            (5111, 3584, 18944), (5111, 18944, 3584)]
+INT4_LM += [(m, i, o) for m in (1, 2, 3, 4)
+            for i, o in ((3584, 512), (3584, 3584), (18944, 3584), (3584, 18944),
+                         (3584, 152064))]
+INT4_LM += [(m, 96, 256) for m in (1, 4, 5, 300)]
 
 
 def _int4_weights(rng, in_dim, out, dev):
@@ -454,9 +470,7 @@ def _int4_weights(rng, in_dim, out, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("out", [200, 512, 3584])
-@pytest.mark.parametrize("in_dim", [64, 96, 3584, 18944])
-@pytest.mark.parametrize("m", [1, 4, 16, 17, 300])
+@pytest.mark.parametrize("m,in_dim,out", INT4_GRID + INT4_LM)
 def test_int4_matmul_matches_plain(dev, m, in_dim, out):
     from rga3_tpu_torch.ops import quant as tq
 
@@ -465,10 +479,14 @@ def test_int4_matmul_matches_plain(dev, m, in_dim, out):
     x = _bf16(rng, (m, in_dim), dev)
     tatt.reset_launches()
     y = tq.int4_matmul(x, q, s)
+    y2 = tq.int4_matmul(x, q, s)
     torch.cuda.synchronize()
-    assert tq.int4_matmul.launches == 1 and y.shape == (m, out) and y.dtype == torch.bfloat16
+    assert tq.int4_matmul.launches == 2 and y.shape == (m, out) and y.dtype == torch.bfloat16
+    assert torch.equal(y, y2)
     ref = tq.int4_matmul_reference(x, q, s)
     assert torch.isfinite(y).all() and _rel_err(y, ref) < TOL
+    if tq.int4_splits(m, in_dim, out) > 1:
+        assert not tq._workspaces[y.device.index][:1024].any()
 
 
 @pytest.mark.cuda
