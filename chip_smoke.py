@@ -36,6 +36,15 @@ Phases, each timed on its own line:
      the earlier unfused Hiera path (`unfused(cfg)`) on the
      same weights, its own launches counted, against the fused route, and
      the two routes' SAM encode of one chunk timed in six alternating pairs;
+  5b. tracker: `track_video` (the SAM2 memory tracker) on the same weights
+     and the 8 frames resized to 1024^2 on the card, O = 2 objects prompted
+     by the 2 expressions' [SEG] embeddings (cold, warm, traced), then by
+     one positive click each; each a path of its own (counts reset before
+     its cold call); 56 flash launches at head dim 256 per track (4 memory
+     attention layers x self + cross x 7 frames), shapes and finite values,
+     seconds per track, frames/s, peak memory, the device's busy share; the
+     kernel route against the plain route on frame 1, the first frame that
+     reads memory (frames 2-7 logged);
   6. train: `build_train_step` on the same UniGR (the release LoRA, r=128,
      alpha=256, whose zero B left the earlier phases' outputs unchanged;
      trainable LoRA, lm_head, embed_tokens, the SAM2 mask decoder and
@@ -49,7 +58,9 @@ Phases, each timed on its own line:
      plain route's on the same weights and batch;
   7. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the paths
-     made (shapes, strides, options, segment ids; bf16 inputs; per
+     made (shapes, strides, options, segment ids: the flash forward at
+     each distinct segment ids its recorded launches had, so the tracker's
+     cross-attention at every bank it saw; bf16 inputs; per
      output row within ROW_TOL of the row's max|plain|; the flash backward
      against `flash_attention_bwd_reference`, dq, dk and dv per row), with
      its time, its bound, the plain version's time and the time of the same
@@ -62,7 +73,8 @@ Phases, each timed on its own line:
      must give equal bits;
   8. reference: a small model with the fused Hiera routes (and the split
      window block) on the card against the same model in f32 on the CPU,
-     and a small int4 chat on the card against the same quantized model on
+     its 2-frame track (the memory encoder and the bank; the dense memory
+     attention), and a small int4 chat on the card against the same quantized model on
      the CPU (prefill and teacher-forced decode logits).
 
 The line before the last is the per-kernel JSON summary; the last line is
@@ -103,6 +115,9 @@ EOS, PAD = 151645, 151643
 # output; a decode that read a wrong cache slot is off by the order of the
 # logits themselves
 CHAT_TOL = 5e-2
+# flash launches at head dim 256 in one 8-frame track: Sam2Config's 4 memory
+# attention layers x (self + cross) x the 7 frames that read memory
+TRACK_D256 = 4 * 2 * 7
 TRAIN_STEPS = 5  # untraced train steps on one batch (the first at lr 0), then one traced
 TRAIN_SAM_FRAMES = 4  # TrainConfig.num_frames_sam
 TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <= 80)
@@ -189,7 +204,57 @@ def plain_flash(q, k, v, kw):
         for i in range(0, lq, step)], 1)
 
 
-def check_flash(key, segs, gen, reps):
+def distinct_segments(calls):
+    """[((q_seg, kv_seg) or None, launches)] of the distinct segment ids
+    among a recorded call's launches (None: a launch without them)."""
+    import torch
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is b
+        return all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+    out = []
+    for segs in calls:
+        for entry in out:
+            if same(entry[0], segs):
+                entry[1] += 1
+                break
+        else:
+            out.append([segs, 1])
+    return [tuple(e) for e in out]
+
+
+def check_flash(key, calls, gen, reps):
+    """The forward kernel at one recorded shape, once for each distinct
+    segment ids its launches had (the tracker's bank gains valid frames
+    from frame to frame at one shape); the times, bound and errors of the
+    call are the launch-weighted means (errors the max) over them."""
+    parts = distinct_segments(calls)
+    rs = [(check_flash_segments(key, segs, gen, reps), n) for segs, n in parts]
+    if len(rs) == 1:
+        return rs[0][0]
+    total = sum(n for _, n in rs)
+    for r, n in rs:
+        log(f"  flash [{r['desc']}] x{n}: row err / max|ref| {r['rel']:.3e}, ms {r['ms']:.4f}, "
+            f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}), plain_ms {r['plain_ms']:.4f}, "
+            f"library_ms {r['lib_ms']:.4f}, TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} "
+            f"(library {r['flops'] / r['lib_ms'] / 1e9:.1f})")
+
+    def mean(f):
+        return sum(f(r) * n for r, n in rs) / total
+
+    ops = mean(lambda r: r["bound"][0] * (r["bound"][1] == "operations"))
+    bound_ms = mean(lambda r: r["bound"][0])
+    first = rs[0][0]
+    return dict(desc=f"{first['desc'].rsplit(' segments=', 1)[0]} segments: {len(rs)} distinct",
+                err=max(r["err"] for r, _ in rs), rel=max(r["rel"] for r, _ in rs),
+                ms=mean(lambda r: r["ms"]), plain_ms=mean(lambda r: r["plain_ms"]),
+                lib_ms=mean(lambda r: r["lib_ms"]), flops=mean(lambda r: r["flops"]),
+                bound=(bound_ms, "operations" if 2 * ops >= bound_ms else "bytes"))
+
+
+def check_flash_segments(key, segs, gen, reps):
     import torch
     import torch.nn.functional as F
     from rga3_tpu_torch.ops.attention import flash_attention
@@ -237,8 +302,9 @@ def check_flash(key, segs, gen, reps):
     nbytes = 2.0 * (2 * b * lq * h * d + 2 * b * lk * hkv * d)
     if qseg is not None:
         nbytes += 4.0 * b * (lq + lk)
+    valid = "" if kseg is None or causal else f" valid keys {int(allowed[:, 0].sum().item()) // b}/{lk}"
     desc = (f"B={b} Lq={lq} Lk={lk} H={h}/{hkv} D={d} causal={causal} "
-            f"segments={'none' if qseg is None else qseg.unique().numel()}")
+            f"segments={'none' if qseg is None else qseg.unique().numel()}{valid}")
     return dict(desc=desc, err=err, rel=rel, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 bound=bound(flops, nbytes), flops=flops)
 
@@ -745,6 +811,114 @@ HIERA_L_LAUNCHES = {"fused_window_block": 39, "fused_global_block": 3,
 
 
 # --------------------------------------------------------------------------
+# the SAM2 memory tracker at Hiera-L width
+# --------------------------------------------------------------------------
+
+
+def d256_launches(calls) -> int:
+    """Launches of the flash forward at head dim 256 among recorded calls."""
+    return sum(n for key, (n, _) in calls.items() if key[0][3] == 256)
+
+
+def tracker_phase(model, proc, frames, expressions, read_path) -> dict:
+    """`track_video` on the smoke's 8 frames, resized on the card to the
+    SAM resolution as `UniGRSegmentor.encode_frames` does: O = 2 objects
+    prompted by the expressions' [SEG] embeddings (cold, warm, traced),
+    then by one positive click each; each path's launches read after its
+    cold call. Checks shapes, finite values, TRACK_D256 flash launches at
+    head dim 256 per track, and the kernel route against the plain route
+    on frame 1, the first frame that reads memory (frames 2-7 logged).
+    Returns the two paths' (launches, calls)."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor
+    from rga3_tpu_torch.models.sam2.video import track_video
+    from rga3_tpu_torch.ops.attention import reset_launches, set_plain_attention
+    from rga3_tpu_torch.ops.resize import resize_u8_bicubic_aa
+
+    sam = model.grounding_encoder
+    cfg = sam.cfg
+    size = cfg.image_size
+    seg = UniGRSegmentor(model, proc, num_frames_mllm=8, sam_chunk=8)
+    embs = torch.stack([seg._seg_embedding(frames, e)[0] for e in expressions])[:, None]
+    dev = model.device
+    u8 = resize_u8_bicubic_aa(torch.as_tensor(np.stack(frames), device=dev), (size, size))
+    n_obj, t = embs.shape[0], u8.shape[0]
+    paths = {}
+
+    def track(**prompts):
+        t1 = time.perf_counter()
+        out = track_video(sam, u8, **prompts)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def check(name, out, launches, calls):
+        masks, ptrs = out["high_res_masks"], out["obj_ptrs"]
+        n256 = d256_launches(calls["flash_attention"])
+        log(f"tracker {name}: masks {tuple(masks.shape)} {masks.dtype}, obj_ptrs "
+            f"{tuple(ptrs.shape)}, foreground {(masks > 0).float().mean().item():.4f}; "
+            f"flash launches at D=256 {n256} (expected {TRACK_D256}); launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+        if masks.shape != (t, n_obj, size, size) or ptrs.shape != (t, n_obj, cfg.hidden_dim):
+            raise AssertionError(f"tracker {name}: shapes {masks.shape} {ptrs.shape}")
+        if not (torch.isfinite(masks).all() and torch.isfinite(ptrs).all()):
+            raise AssertionError(f"tracker {name}: non-finite outputs")
+        if n256 != TRACK_D256:
+            raise AssertionError(f"tracker {name}: {n256} flash launches at D=256, "
+                                 f"expected {TRACK_D256}")
+        for k in SEGMENT_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError(f"tracker {name}: {k} was not launched")
+
+    lang = dict(language_embd=embs)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, cold = track(**lang)
+    paths["track_language"] = read_path()
+    peak = torch.cuda.max_memory_allocated()
+    check("language (O=2 [SEG] embeddings)", out, *paths["track_language"])
+    _, warm = track(**lang)
+    log(f"tracker language: cold {cold:.3f} s, warm {warm:.3f} s per {t}-frame track of "
+        f"{n_obj} objects, {t / warm:.2f} frames/s warm; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB (the bf16 UniGR included)")
+    busy = device_breakdown(lambda: track_video(sam, u8, **lang))
+    log(f"profile (track_video, language): device busy in the traced call / wall of the "
+        f"untraced warm call: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}")
+    # one positive click each, at two places of the SAM image
+    points = dict(point_coords=torch.tensor([[[0.3 * size, 0.4 * size]],
+                                             [[0.7 * size, 0.6 * size]]], device=dev),
+                  point_labels=torch.ones(2, 1, dtype=torch.int32, device=dev))
+    reset_launches()
+    out_p, cold_p = track(**points)
+    paths["track_points"] = read_path()
+    check("points (one positive click each)", out_p, *paths["track_points"])
+    log(f"tracker points: cold {cold_p:.3f} s per track")
+
+    # the plain route (memory attention dense, every kernel call site plain)
+    set_plain_attention(sam, True)
+    try:
+        plain, plain_s = track(**lang)
+    finally:
+        set_plain_attention(sam, False)
+    for f in range(t):
+        mk, mp = out["high_res_masks"][f], plain["high_res_masks"][f]
+        pk, pp = out["obj_ptrs"][f].float(), plain["obj_ptrs"][f].float()
+        agree = ((mk > 0) == (mp > 0)).float().mean().item()
+        logit_rel = ((mk - mp).abs().max() / mp.abs().max()).item()
+        ptr_rel = ((pk - pp).norm() / pp.norm()).item()
+        log(f"tracker kernel vs plain route, frame {f}: mask agreement {agree:.5f}, mask "
+            f"logits max err / max|logit| {logit_rel:.3e}, obj_ptrs rel err {ptr_rel:.3e}"
+            + (" (gated)" if f == 1 else ""))
+        if f == 1 and not (agree > 0.95 and ptr_rel < 0.1):
+            raise AssertionError("tracker: the kernel route disagrees with the plain route "
+                                 "on frame 1")
+    log(f"tracker plain route: {plain_s:.3f} s per track")
+    del seg, out, out_p, plain, u8
+    torch.cuda.empty_cache()
+    return paths
+
+
+# --------------------------------------------------------------------------
 # a small model on the card against the same weights on the CPU
 # --------------------------------------------------------------------------
 
@@ -757,9 +931,11 @@ def small_reference(seed: int) -> None:
     from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor
     from rga3_tpu_torch.models.qwen25vl import tiny_config
     from rga3_tpu_torch.models.sam2.config import tiny_sam2_config
+    from rga3_tpu_torch.models.sam2.video import track_video
     from rga3_tpu_torch.models.unigr import UniGR, UniGRConfig
     from rga3_tpu_torch.ops import fused_block as fb
     from rga3_tpu_torch.ops.attention import flash_attention, window_attention
+    from rga3_tpu_torch.ops.resize import resize_u8_bicubic_aa
 
     proc = QwenVLProcessor.from_pretrained(
         "dummy", min_pixels=4 * 28 * 28, max_pixels=64 * 28 * 28,
@@ -799,6 +975,25 @@ def small_reference(seed: int) -> None:
         f"{logit_rel:.3e}, mask agreement {agree:.5f}")
     if not (emb_rel < 5e-2 and logit_rel < 5e-2 and agree > 0.97):
         raise AssertionError("small reference: the card disagrees with the CPU")
+    # the tracker on the same models: 2 frames, O = 2, the same prompts and
+    # frames on both devices; its 480-key bank takes the dense memory
+    # attention on both, so this holds the memory encoder and the bank
+    size = sam.image_size
+    u8 = resize_u8_bicubic_aa(torch.from_numpy(np.stack(frames)), (size, size))
+    lang = torch.stack([ec, ec.flip(0)])[:, None]
+    tracks = [track_video(m.grounding_encoder, u8.to(m.device),
+                          language_embd=lang.to(m.device, m.dtype), device=m.device)
+              for m in (cpu, gpu)]
+    (mc, pc), (mg, pg) = ((tr["high_res_masks"].float().cpu(), tr["obj_ptrs"].float().cpu())
+                          for tr in tracks)
+    for f in range(mc.shape[0]):
+        t_rel = ((mg[f] - mc[f]).abs().max() / mc[f].abs().max()).item()
+        t_agree = ((mg[f] > 0) == (mc[f] > 0)).float().mean().item()
+        p_rel = ((pg[f] - pc[f]).norm() / pc[f].norm()).item()
+        log(f"small reference tracker (track_video, O=2), frame {f}: mask logit max err / "
+            f"max|logit| {t_rel:.3e}, mask agreement {t_agree:.5f}, obj_ptrs rel err {p_rel:.3e}")
+        if not (t_rel < 5e-2 and t_agree > 0.97 and p_rel < 5e-2):
+            raise AssertionError("small reference tracker: the card disagrees with the CPU")
 
 
 def teacher_forced_logits(model, inputs, tokens):
@@ -1538,6 +1733,11 @@ def main() -> int:
     del seg, emb_k, emb_p, logits_k, logits_p, logits_u
     torch.cuda.empty_cache()
     log(f"phase plain_route: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 5b. the SAM2 memory tracker on the same weights and frames
+    t0 = time.perf_counter()
+    paths.update(tracker_phase(model, proc, frames, expressions, read_path))
+    log(f"phase tracker: {time.perf_counter() - t0:.2f} s")
 
     # ---- 6. train: the UniGR train step at the same width, on these weights
     t0 = time.perf_counter()

@@ -19,9 +19,8 @@ and only the leaves change:
     and `scale` / `scale_g` f32 (a `scale` beside a `kernel_q` is not a
     norm's). Every other leaf is cast to `dtype`.
 
-Subtrees the ported path does not run yet (the SAM2 memory attention and
-memory encoder, and their positional parameters) are dropped by name; any
-other key the port lacks makes `load_state_dict(strict=True)` fail.
+Every subtree maps: a key the port lacks makes
+`load_state_dict(strict=True)` fail.
 `load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
 exporter writes, with numpy alone.
 """
@@ -34,9 +33,6 @@ import torch
 
 Tree = Mapping[str, Union[np.ndarray, "Tree"]]
 
-# not on the ported path yet: the tracker's memory modules
-SKIPPED = ("memory_attention", "memory_encoder", "maskmem_tpos_enc",
-           "no_mem_pos_enc")
 CONV_TRANSPOSE = ("output_upscaling_0", "output_upscaling_3")
 NCHW_PARAMS = ("pos_embed", "pos_embed_window")
 
@@ -92,8 +88,6 @@ def torch_state_dict_from_flax(
     flat = _flatten(params)
     quant = {p[:-1] for p in flat if p[-1] in QUANT_LEAVES}
     for path, x in flat.items():
-        if any(p in SKIPPED for p in path):
-            continue
         quantized = path[:-1] in quant
         name, y = _leaf(path, x, quantized)
         key = ".".join(path[:-1] + (name,))

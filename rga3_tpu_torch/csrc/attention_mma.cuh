@@ -30,6 +30,12 @@
 // pad columns of Q and K are zeroed once and never written by a copy. P V
 // runs D / 8 n8 tiles (nine at D = 72).
 //
+// D = 256 (SAM2 memory attention, one head at d_model 256): Q fragments
+// (64 registers a thread) beside the O accumulators (128) and S (32) would
+// pass the 255-register cap, so at D > 128 the Q tile stays in shared memory
+// in rows of its own and each k16 step of Q K^T reads its A fragment with one
+// ldmatrix (Dims<D>::kQSmem); one block an SM (~169 KB of shared memory).
+//
 // Why mma.sync and not wgmma + TMA: the two largest callers have D = 72 and
 // D = 80, whose 144- and 160-byte rows do not fit wgmma's 128-byte swizzled
 // core layouts without splitting or padding the operands in device memory;
@@ -80,10 +86,11 @@ constexpr int kStages = 2;                  // the K/V ring
 
 // Blocks an SM should hold (the register cap of __launch_bounds__): three
 // at D <= 80 (up to 170 registers a thread; four would cap them at 128,
-// which spills), two at D = 128 (whose fragments need ~220).
+// which spills), two at D = 128 (whose fragments need ~220), one at D = 256
+// (the shared memory of one block).
 template <int D>
 constexpr int min_blocks() {
-  return D >= 128 ? 2 : 3;
+  return D > 128 ? 1 : D >= 128 ? 2 : 3;
 }
 
 template <int D>
@@ -93,15 +100,28 @@ struct Dims {
   static constexpr int kKSteps = kPadded / 16;        // k16 steps of Q K^T
   static constexpr int kNTiles = D / 8;               // n8 tiles of P V
   static constexpr int kChunks = D / 8;               // 16-byte chunks of a row
-  static constexpr int kSlots = kChunks <= 2 ? 2 : 16;  // copy slots a row (>= kChunks)
+  static constexpr int kSlots = kChunks <= 2 ? 2 : kChunks <= 16 ? 16 : 32;  // >= kChunks
+  static constexpr bool kQSmem = D > 128;  // Q fragments read from shared memory
 };
 
-// Dynamic shared memory of the K/V ring, in bytes. The Q tile is staged in
-// stage 1's K rows: its fragments move to registers before the first copy
-// into stage 1, and the output is staged there after the last tile.
+// Shared rows of the K/V ring and the Q tile. At D <= 128 the Q tile is
+// staged in stage 1's K rows: its fragments move to registers before the
+// first copy into stage 1. At D > 128 it has rows of its own after the ring.
+// The output is staged in the Q rows after the last tile.
+template <int D>
+__host__ __device__ constexpr int ring_rows() {
+  return 2 * kStages * kKeys + (Dims<D>::kQSmem ? kRows : 0);
+}
+
+template <int D>
+__device__ __forceinline__ bf16* q_tile(bf16* ring) {
+  return ring + (Dims<D>::kQSmem ? 2 * kStages * kKeys : 2 * kKeys) * Dims<D>::kStride;
+}
+
+// Dynamic shared memory of the ring and the Q tile, in bytes.
 template <int D>
 constexpr size_t ring_smem_bytes() {
-  return size_t(2 * kStages * kKeys) * Dims<D>::kStride * sizeof(bf16);
+  return size_t(ring_rows<D>()) * Dims<D>::kStride * sizeof(bf16);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -230,16 +250,21 @@ __device__ __forceinline__ float row_reduce(const float (&s)[8][4], int r) {
 template <int D>
 struct WarpTile {
   static constexpr int KS = Dims<D>::kKSteps, NT = Dims<D>::kNTiles, S = Dims<D>::kStride;
-  uint32_t q[KS][4];
+  static constexpr bool kQSmem = Dims<D>::kQSmem;
+  uint32_t q[kQSmem ? 1 : KS][4];  // the Q fragments (kQSmem: unused)
+  const bf16* qp;                  // kQSmem: this lane's ldmatrix address in the Q tile
   float o[NT][4];
   float m[2];  // running max of the base-2 scores, rows g and g + 8
   float l[2];  // this thread's part of the running sum of exp2(s - m)
 
-  // `qs` points at the warp's first row of the Q tile in shared memory.
+  // `qs` points at the warp's first row of the Q tile in shared memory
+  // (kQSmem: it must stay there until the last attend()).
   __device__ __forceinline__ void init(const bf16* qs, int lane) {
+    qp = qs + (lane & 15) * S + (lane >> 4) * 8;
+    if constexpr (!kQSmem) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      ldmatrix_x4(q[ks], qs + (lane & 15) * S + ks * 16 + (lane >> 4) * 8);
+      for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(q[ks], qp + ks * 16);
+    }
 #pragma unroll
     for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
     m[0] = m[1] = -INFINITY;
@@ -265,15 +290,23 @@ struct WarpTile {
     // keys 16c + [0, 8) and 16c + [8, 16): x4 matrices (keys, depth half)
     const bf16* kr = ks + ((lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQSmem) {
+        ldmatrix_x4(qa, qp + kk * 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = q[kk][e];
+      }
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (!kFull && (c < c_lo || c >= c_hi)) continue;
         uint32_t kb[4];
         ldmatrix_x4(kb, kr + 16 * c * S + kk * 16);
-        mma16816(s[2 * c], q[kk], kb[0], kb[1]);
-        mma16816(s[2 * c + 1], q[kk], kb[2], kb[3]);
+        mma16816(s[2 * c], qa, kb[0], kb[1]);
+        mma16816(s[2 * c + 1], qa, kb[2], kb[3]);
       }
+    }
     const int t2 = 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {

@@ -39,6 +39,14 @@
 // (most kv tiles to walk) first, so the long LM prefills end in a short
 // tail; other calls keep a head's q tiles together, which share its K/V in
 // the L2 cache.
+//
+// D = 256 is the SAM2 tracker's memory attention (one head; 4096 queries
+// against 4096 keys, and against the static bank of 7 x 4096 mask-memory
+// and 64 object-pointer keys whose validity rides the kv segment ids). Its
+// Q tile stays in shared memory (attention_mma.cuh, kQSmem), one block an
+// SM; the segment-range skip passes over the bank's invalid frames whole
+// (4096 keys each, 64 tiles), so a call costs what its valid keys cost; the
+// 64 pointer keys (28736 = 449 x 64) form one tile masked per key.
 #include "attention_mma.cuh"
 
 namespace rga3 {
@@ -65,8 +73,8 @@ __global__ void __launch_bounds__(kBlockThreads, min_blocks<D>()) flash_fwd_mma(
   constexpr int S = Dims<D>::kStride;
   extern __shared__ uint4 smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage s: K at 2 s kKeys S, V after it
-  bf16* qsm = ring + 2 * kKeys * S;                  // the Q tile: stage 1's K rows
-  int2* krange = reinterpret_cast<int2*>(ring + 2 * kStages * kKeys * S);  // per kv tile
+  bf16* qsm = q_tile<D>(ring);  // the Q tile (D <= 128: stage 1's K rows)
+  int2* krange = reinterpret_cast<int2*>(ring + ring_rows<D>() * S);  // per kv tile
   __shared__ int qseg[kRows];
   __shared__ int kseg[kStages][kKeys];
 
@@ -144,7 +152,7 @@ __global__ void __launch_bounds__(kBlockThreads, min_blocks<D>()) flash_fwd_mma(
   __syncthreads();
   WarpTile<D> st;
   st.init(qsm + wrow * S, lane);
-  __syncthreads();  // every warp holds its Q: stage 1 is free
+  __syncthreads();  // every warp holds its Q (D <= 128): stage 1 is free
 
   const int lk = p.lk;
   const bool causal = p.causal;
@@ -239,6 +247,7 @@ extern "C" int rga3_flash_attention_bf16(
     case 72: return launch<72>(p, batch, s);
     case 80: return launch<80>(p, batch, s);
     case 128: return launch<128>(p, batch, s);
+    case 256: return launch<256>(p, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }

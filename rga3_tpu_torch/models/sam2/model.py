@@ -1,8 +1,9 @@
 """SAM2 top-level model, counterpart of `rga3_tpu/models/sam2/model.py`:
-image encoding (`forward_image`) and the language-prompted mask decode
-(`decode_features_with_language`, and `decode_frames_with_language` from
-the frames, the training path's). The memory attention and memory encoder
-of the tracker are not on the ported path yet."""
+image encoding (`forward_image`), the language- or point-prompted mask
+decode (`forward_sam_heads`; `decode_features_with_language`, and
+`decode_frames_with_language` from the frames, the training path's), and
+the tracker's memory steps (`condition_on_memory`, `encode_new_memory`,
+`obj_ptrs_to_tokens`), which `video.track_video` drives."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -14,6 +15,7 @@ from ...ops.resize import resize_bilinear, sam_normalize_maybe
 from .config import Sam2Config
 from .layers import MLP
 from .mask_decoder import MaskDecoder
+from .memory import MemoryAttention, MemoryEncoder
 from .neck import ImageEncoder, conv1x1
 from .prompt_encoder import PromptEncoder
 
@@ -29,6 +31,13 @@ class Sam2Model(nn.Module):
         self.no_mem_embed = nn.Parameter(torch.zeros(1, 1, d, **factory))
         self.no_obj_ptr = nn.Parameter(torch.zeros(1, d, **factory))
         self.obj_ptr_proj = MLP(d, d, d, 3, **factory)
+        # the tracker's modules last: a seeded init draws the other
+        # parameters as it did before they were ported
+        self.memory_attention = MemoryAttention(cfg, **factory)
+        self.memory_encoder = MemoryEncoder(cfg, **factory)
+        self.no_mem_pos_enc = nn.Parameter(torch.zeros(1, 1, d, **factory))
+        self.maskmem_tpos_enc = nn.Parameter(
+            torch.zeros(cfg.num_maskmem, 1, 1, cfg.mem_dim, **factory))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -57,10 +66,15 @@ class Sam2Model(nn.Module):
 
     def forward_sam_heads(self, backbone_features, high_res_features,
                           language_embd: Optional[torch.Tensor] = None,
+                          point_coords: Optional[torch.Tensor] = None,
+                          point_labels: Optional[torch.Tensor] = None,
                           multimask_output: bool = True, training: bool = False):
+        """The mask decoder on (B, s, s, C) features, prompted by
+        `language_embd` (B, N, C), points (B, P, 2) pixels / (B, P) labels,
+        both or neither."""
         cfg = self.cfg
         b = backbone_features.shape[0]
-        sparse, dense = self.sam_prompt_encoder(batch=b)
+        sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, batch=b)
         sparse = sparse.to(self.dtype)
         if language_embd is not None:
             sparse = torch.cat([sparse, language_embd.to(self.dtype)], dim=1)
@@ -118,3 +132,32 @@ class Sam2Model(nn.Module):
             pix, (s0, s1), language_embd=language_embd,
             multimask_output=multimask_output, training=training,
         )
+
+    # ------------------------------------------------------------------
+    # the memory-conditioned tracking step (driven by video.track_video)
+    # ------------------------------------------------------------------
+    def condition_on_memory(self, current_feat, current_pos, memory, memory_pos,
+                            memory_valid, num_obj_ptr_tokens: int) -> torch.Tensor:
+        """(B, s, s, C) features and positions attend to the (B, Lk,
+        mem_dim) bank (`memory_valid` (B, Lk) bool); (B, s, s, C) out."""
+        b, s, _, c = current_feat.shape
+        out = self.memory_attention(
+            current_feat.reshape(b, s * s, c), current_pos.reshape(b, s * s, c),
+            memory, memory_pos, num_obj_ptr_tokens=num_obj_ptr_tokens, k_valid=memory_valid)
+        return out.reshape(b, s, s, c)
+
+    def encode_new_memory(self, current_feat, high_res_masks):
+        """(B, s, s, C) stride-16 features and (B, S, S, 1) mask logits ->
+        memory features (B, s, s, mem_dim) and their positional encoding:
+        the scaled sigmoid, then the memory encoder."""
+        cfg = self.cfg
+        mask_for_mem = (torch.sigmoid(high_res_masks) * cfg.sigmoid_scale_for_mem_enc
+                        + cfg.sigmoid_bias_for_mem_enc)
+        return self.memory_encoder(current_feat, mask_for_mem, skip_mask_sigmoid=True)
+
+    def obj_ptrs_to_tokens(self, obj_ptrs: torch.Tensor) -> torch.Tensor:
+        """(N, B, C) pointers -> (N * C / mem_dim, B, mem_dim) tokens."""
+        n, b, c = obj_ptrs.shape
+        r = c // self.cfg.mem_dim
+        toks = obj_ptrs.reshape(n, b, r, self.cfg.mem_dim)
+        return toks.permute(0, 2, 1, 3).reshape(n * r, b, self.cfg.mem_dim)

@@ -1,11 +1,12 @@
 """SAM2 prompt encoder, counterpart of
-`rga3_tpu/models/sam2/prompt_encoder.py`, for the language-prompted decode:
-no point or mask prompt, so the sparse embedding is the padding point and
-the dense one `no_mask_embed`. The mask-prompt branch's parameters are kept
-so that the JAX package's trees load strictly; its forward is not ported."""
+`rga3_tpu/models/sam2/prompt_encoder.py`: point prompts (or none: the
+padding point alone, as the language-prompted decode has) as the sparse
+embedding, `no_mask_embed` as the dense one. The mask-prompt branch's
+parameters are kept so that the JAX package's trees load strictly; its
+forward (`embed_masks`) is not ported: no ported path passes a mask prompt."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -53,15 +54,19 @@ class PromptEncoder(nn.Module):
             out = out + torch.where(lab == i, emb, 0.0)
         return out
 
-    def forward(self, batch: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Embeddings without prompts: sparse (B, 2, C), dense (B, s, s, C)."""
-        dev = self.no_mask_embed.weight.device
-        sparse = self.embed_points(
-            torch.zeros(batch, 1, 2, device=dev),
-            -torch.ones(batch, 1, dtype=torch.int32, device=dev),
-        )
+    def forward(self, point_coords: Optional[torch.Tensor] = None,
+                point_labels: Optional[torch.Tensor] = None, batch: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sparse (B, P + 1, C) f32 embeddings of the points (coords (B, P, 2)
+        in pixels, labels (B, P)), or of one padding point per row of
+        `batch` without them; dense (B, s, s, C) `no_mask_embed`."""
+        if point_coords is None:
+            dev = self.no_mask_embed.weight.device
+            point_coords = torch.zeros(batch, 1, 2, device=dev)
+            point_labels = -torch.ones(batch, 1, dtype=torch.int32, device=dev)
+        sparse = self.embed_points(point_coords, point_labels)
         s = self.cfg.feat_size
         dense = self.no_mask_embed.weight[0][None, None, None].expand(
-            batch, s, s, self.cfg.d_model
+            sparse.shape[0], s, s, self.cfg.d_model
         )
         return sparse, dense

@@ -137,8 +137,13 @@ class UniGR(nn.Module):
         """Random weights from `generator` (on the parameters' device):
         normal(0, std) for Linear / Embedding / conv weights and raw
         parameters, zero biases, unit norm scales, and zero LoRA B (PEFT's
-        init: the adapters start as the identity)."""
-        for name, p in self.named_parameters():
+        init: the adapters start as the identity). The SAM2 tracker's
+        parameters draw last, so that a seed gives every other parameter
+        the values it gave before the tracker was ported."""
+        tracker = ("memory_attention.", "memory_encoder.", "maskmem_tpos_enc", "no_mem_pos_enc")
+        params = sorted(self.named_parameters(),
+                        key=lambda item: any(t in item[0] for t in tracker))
+        for name, p in params:
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "bias" or leaf.endswith("_lora_b"):
                 p.zero_()

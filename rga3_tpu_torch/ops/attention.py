@@ -19,9 +19,9 @@ A wrapper never falls back: on a CUDA tensor it launches its kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`, so a run
 can show that it went through the kernel, and keeps in `<wrapper>.shapes`
 every distinct call it launched (shapes, strides, options) with its count
-and, for flash and its backward, the first call's segment ids, so that the
-kernel can be checked again at exactly the shapes a run gave it.
-`reset_launches()` clears both.
+and, for flash, the segment ids of its first SEGMENT_RECORDS launches (for
+its backward the first launch's), so that the kernel can be checked again
+at exactly the calls a run gave it. `reset_launches()` clears both.
 
 `mha_reference` is also the port's attention wherever the JAX package runs
 plain XLA attention rather than a Pallas kernel (short query runs, the Qwen
@@ -39,7 +39,14 @@ import torch
 from . import _kernels
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-KERNEL_HEAD_DIMS = (16, 72, 80, 128)  # the main path's: SAM decoder, Hiera, ViT, LM
+# head dims of the forward kernel: SAM decoder, Hiera, ViT, LM, SAM2 memory attention
+KERNEL_HEAD_DIMS = (16, 72, 80, 128, 256)
+# of the backward kernel: the train step's (the tracker does not train)
+BWD_HEAD_DIMS = (16, 72, 80, 128)
+# launches of one flash call (shapes, strides, options) whose segment ids are
+# kept: the tracker's bank gains valid frames from frame to frame at one shape
+# (28 such launches an 8-frame track); bounded, so a long run holds ~16 MB a call
+SEGMENT_RECORDS = 64
 
 
 def mha_reference(
@@ -157,10 +164,10 @@ def set_plain_attention(model: torch.nn.Module, plain: bool) -> None:
             m.plain_attention = plain
 
 
-def _check_cuda_inputs(name: str, *ts: torch.Tensor) -> None:
+def _check_cuda_inputs(name: str, *ts: torch.Tensor, head_dims=KERNEL_HEAD_DIMS) -> None:
     """The kernels' input contract for every tensor given (q, k and v; for
     the backward also o and do): bf16, the head dim contiguous, one device,
-    a head dim they take, and rows the kernels can copy in 16-byte pieces:
+    a head dim in `head_dims`, and rows the kernels can copy in 16-byte pieces:
     the data pointer 16-byte aligned, the batch, row and head strides
     multiples of 8 elements (a dim of size 1 is never stepped)."""
     for t in ts:
@@ -174,24 +181,27 @@ def _check_cuda_inputs(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: the kernel copies 16-byte rows; got a data pointer "
                 f"{t.data_ptr() % 16} bytes past 16-byte alignment, strides {t.stride()}")
-    if ts[0].shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{name}: head dim {ts[0].shape[-1]} not in {KERNEL_HEAD_DIMS}"
-        )
+    if ts[0].shape[-1] not in head_dims:
+        raise ValueError(f"{name}: head dim {ts[0].shape[-1]} not in {head_dims}")
 
 
 def _ptr_strides(t: torch.Tensor):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
-def _record(wrapper, key, extra=None) -> None:
-    """Count one launch of `wrapper`'s kernel and the call it made."""
+def _record(wrapper, key, extra=None, keep=0) -> None:
+    """Count one launch of `wrapper`'s kernel and the call it made: with
+    `keep`, the `extra` of its first `keep` launches as a tuple (rebuilt,
+    not appended to, so that a snapshot of the record keeps what it saw),
+    else the first launch's."""
     wrapper.launches += 1
     seen = wrapper.shapes.get(key)
     if seen is None:
-        wrapper.shapes[key] = [1, extra]
+        wrapper.shapes[key] = [1, (extra,) if keep else extra]
     else:
         seen[0] += 1
+        if keep and len(seen[1]) < keep:
+            seen[1] = seen[1] + (extra,)
 
 
 _WRAPPERS = []
@@ -268,7 +278,11 @@ def _flash_forward(q, k, v, q_seg, kv_seg, causal, scale, with_lse):
     _kernels.check(err, "flash_attention")
     key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), v.stride(),
            bool(causal), float(scale))
-    _record(flash_attention, key, None if q_seg is None else (q_seg.clone(), kv_seg.clone()))
+    seen = flash_attention.shapes.get(key)
+    segs = None  # device copies, no host sync
+    if q_seg is not None and (seen is None or len(seen[1]) < SEGMENT_RECORDS):
+        segs = (q_seg.clone(), kv_seg.clone())
+    _record(flash_attention, key, segs, keep=SEGMENT_RECORDS)
     return out, lse
 
 
@@ -297,7 +311,7 @@ def flash_attention_bwd(
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention_bwd: no kernel for {q.device}")
     do = do.contiguous()
-    _check_cuda_inputs("flash_attention_bwd", q, k, v, o, do)
+    _check_cuda_inputs("flash_attention_bwd", q, k, v, o, do, head_dims=BWD_HEAD_DIMS)
     if (h % hkv != 0 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or o.shape != q.shape or do.shape != q.shape):
         raise ValueError("flash_attention_bwd: mismatched q/k/v/o/do shapes")
@@ -404,6 +418,9 @@ def flash_attention(
         scale = 1.0 / math.sqrt(d)
     q_seg, kv_seg = _segments(q, b, lq, lk, segment_ids, kv_segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if d not in BWD_HEAD_DIMS:
+            raise ValueError(f"flash_attention: no backward kernel at head dim {d} "
+                             f"(it takes {BWD_HEAD_DIMS}); call it under torch.no_grad()")
         return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal), float(scale))
     return _flash_forward(q, k, v, q_seg, kv_seg, causal, scale, with_lse=False)[0]
 

@@ -1,6 +1,7 @@
-"""Rotary position embeddings: Qwen2.5-VL M-RoPE and the Qwen ViT 2D RoPE.
+"""Rotary position embeddings: Qwen2.5-VL M-RoPE and the Qwen ViT 2D RoPE
+(rotate_half layout), and SAM2's axial RoPE (interleaved pairs).
 
-Counterpart of `rga3_tpu/ops/rope.py` (rotate_half layout, tables in f32).
+Counterpart of `rga3_tpu/ops/rope.py` (tables in f32).
 """
 from __future__ import annotations
 
@@ -68,3 +69,35 @@ def vision_rope_cos_sin(
     )
     emb = torch.cat([half, half], dim=-1)
     return emb.cos(), emb.sin()
+
+
+# ---------------------------------------------------------------------------
+# SAM2 axial RoPE (interleaved complex-pair convention)
+# ---------------------------------------------------------------------------
+
+
+def axial_cos_sin(end_x: int, end_y: int, dim: int, theta: float = 10_000.0,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2D axial rotary table for a flattened (end_x * end_y) token grid:
+    cos, sin (end_x * end_y, dim // 2) f32, the first dim // 4 pair
+    frequencies for x (t % end_x), the rest for y (t // end_x). Computed in
+    f32 in the order of the JAX package's numpy table."""
+    quarter = dim // 4
+    f32 = dict(dtype=torch.float32, device=device)
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 4, **f32)[:quarter] / dim))
+    t = torch.arange(end_x * end_y, **f32)
+    fx = torch.outer(t % end_x, freqs)
+    fy = torch.outer(torch.floor(t / end_x), freqs)
+    ang = torch.cat([fx, fy], dim=-1)
+    return ang.cos(), ang.sin()
+
+
+def apply_rotary_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                             ) -> torch.Tensor:
+    """Rotate the interleaved (even, odd) pairs of x's last dim by the
+    angles of cos / sin (broadcast against x[..., 0::2]), in f32; the
+    output keeps x's dtype."""
+    x32 = x.float()
+    even, odd = x32[..., 0::2], x32[..., 1::2]
+    out = torch.stack([even * cos - odd * sin, even * sin + odd * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

@@ -91,6 +91,26 @@ def test_flash_plain_rows_without_valid_keys_follow_mha_reference():
     np.testing.assert_allclose(out[0, :80], kern[0, :80], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("lq,lk", [(64, 200), (100, 448)])
+def test_flash_plain_matches_jax_head_dim_256_key_validity(lq, lk):
+    """The memory attention's call: one head at D = 256, q segment ids all
+    1, kv segment ids the keys' validity (whole runs of invalid keys, as
+    the bank's empty frames, and single invalid pointer tokens)."""
+    rng = np.random.default_rng(lq + lk)
+    q, k, v = _qkv(rng, 2, lq, lk, 1, 1, 256)
+    qs = np.ones((2, lq), np.int32)
+    ks = np.ones((2, lk), np.int32)
+    ks[0, lk // 4:lk // 2] = 0
+    ks[1, :lk // 2] = 0
+    ks[1, -5:-2] = 0
+    out = tatt.flash_attention(*_t(q, k, v), segment_ids=torch.from_numpy(qs),
+                               kv_segment_ids=torch.from_numpy(ks), scale=1 / 16).numpy()
+    kern = np.asarray(jatt.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), segment_ids=jnp.asarray(qs),
+        kv_segment_ids=jnp.asarray(ks), scale=1 / 16, interpret=True))
+    np.testing.assert_allclose(out, kern, atol=ATOL, rtol=0)
+
+
 def test_flash_causal_requires_equal_lengths():
     q = torch.zeros(1, 8, 2, 16)
     k = torch.zeros(1, 9, 2, 16)

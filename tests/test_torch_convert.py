@@ -61,12 +61,42 @@ def test_fused_config_params_load_strict(fused_tree):
 
 
 def test_unknown_keys_fail_strict_and_memory_subtrees_are_dropped(fused_tree):
+    """The tracker's memory subtrees are no longer dropped: they load
+    strictly into the port's memory modules (layouts as every other leaf);
+    an unknown key still fails."""
     sd = torch_state_dict_from_flax(fused_tree)
-    assert not any("memory_attention" in k or "memory_encoder" in k for k in sd)
-    assert "memory_attention" in fused_tree["params"]["grounding_encoder"]
+    g = fused_tree["params"]["grounding_encoder"]
+    for name in ("memory_attention", "memory_encoder"):
+        assert name in g and any(k.startswith(f"grounding_encoder.{name}.") for k in sd)
+    model = _port_model()
+    model.load_state_dict(sd, strict=True)
+    sam = model.grounding_encoder
+    np.testing.assert_array_equal(
+        sam.memory_attention.layers_0.cross_attn_image.k_proj.weight.detach().numpy(),
+        g["memory_attention"]["layers_0"]["cross_attn_image"]["k_proj"]["kernel"].T)
+    np.testing.assert_array_equal(
+        sam.memory_encoder.fuser_layers_0.dwconv.weight.detach().numpy(),
+        g["memory_encoder"]["fuser_layers_0"]["dwconv"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sam.memory_encoder.fuser_layers_1.g_weight.detach().numpy(),
+                                  g["memory_encoder"]["fuser_layers_1"]["g_weight"])
+    np.testing.assert_array_equal(sam.maskmem_tpos_enc.detach().numpy(), g["maskmem_tpos_enc"])
+    np.testing.assert_array_equal(sam.no_mem_pos_enc.detach().numpy(), g["no_mem_pos_enc"])
     sd["grounding_encoder.unexpected.weight"] = torch.zeros(1)
     with pytest.raises(RuntimeError):
         _port_model().load_state_dict(sd, strict=True)
+
+
+def test_init_weights_covers_the_memory_parameters():
+    """UniGR.init_weights draws every new parameter: the layer scales and
+    the temporal encodings by the raw-parameter rule, normal(0, std)."""
+    model = _port_model()
+    model.init_weights(torch.Generator().manual_seed(0), std=0.02)
+    sam = model.grounding_encoder
+    for p in (sam.memory_encoder.fuser_layers_0.g_weight, sam.maskmem_tpos_enc,
+              sam.no_mem_pos_enc, sam.memory_attention.layers_1.self_attn.q_proj.weight):
+        assert 0.005 < p.detach().std().item() < 0.05
+    assert torch.equal(sam.memory_attention.norm.weight.detach(),
+                       torch.ones_like(sam.memory_attention.norm.weight))
 
 
 def test_lora_and_npz_loader_match_the_jax_exporter():

@@ -63,7 +63,8 @@ def test_flash_causal_segments(dev, b, l, h, hkv, d):
     assert tatt.flash_attention.launches == 2
     [(key, (count, segs))] = tatt.flash_attention.shapes.items()
     assert key[:2] == ((b, l, h, d), q.stride()) and key[5] is True and count == 2
-    assert torch.equal(segs[0], seg.int()) and torch.equal(segs[1], seg.int())
+    assert len(segs) == 2  # every launch's (q, kv) segment ids
+    assert all(torch.equal(qs, seg.int()) and torch.equal(ks, seg.int()) for qs, ks in segs)
     ref = tatt.mha_reference(q, k, v, causal=True, segment_ids=seg)
     assert _rel_err(out, ref) < TOL
 
@@ -142,11 +143,122 @@ def test_window_rejects_unsupported_windows(dev):
         tatt.window_attention(q, q, q, 48)
 
 
+# ---- head dim 256: the SAM2 tracker's memory attention ----------------------
+
+
+def _bank_segments(dev, frames_valid, ptr_valid, ltok=4096, ptr_tokens=4):
+    """kv segment ids (validity) of the tracker's static bank: 7 frame
+    slots of `ltok` keys, then the pointers' tokens; one row per list."""
+    rows = []
+    for fv, pv in zip(frames_valid, ptr_valid):
+        rows.append(np.concatenate([np.repeat(np.asarray(fv, np.int32), ltok),
+                                    np.repeat(np.asarray(pv, np.int32), ptr_tokens)]))
+    return torch.from_numpy(np.stack(rows)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(300, 4161), (4096, 4096), (65, 1000)])
+def test_flash_head_dim_256_ragged_keys(dev, lq, lk):
+    """D = 256 with lengths off the 64-key tile, with and without the
+    all-ones segment ids of the memory self-attention."""
+    rng = np.random.default_rng(lk)
+    q = _bf16(rng, (2, lq, 1, 256), dev)
+    k, v = (_bf16(rng, (2, lk, 1, 256), dev) for _ in range(2))
+    ref = tatt.mha_reference(q, k, v, scale=1 / 16)
+    assert _rel_err(tatt.flash_attention(q, k, v, scale=1 / 16), ref) < TOL
+    ones_q = torch.ones(2, lq, dtype=torch.int32, device=dev)
+    ones_k = torch.ones(2, lk, dtype=torch.int32, device=dev)
+    out = tatt.flash_attention(q, k, v, segment_ids=ones_q, kv_segment_ids=ones_k, scale=1 / 16)
+    assert _rel_err(out, ref) < TOL
+
+
+# (valid frame slots, valid pointers) of each of the two batch rows
+BANKS = {
+    "frame1": ([[1, 0, 0, 0, 0, 0, 0]] * 2, [[1] + [0] * 15] * 2),
+    "half": ([[1, 0, 1, 0, 1, 0, 1], [1, 1, 0, 0, 0, 1, 1]], [[1, 0] * 8, [1] * 9 + [0] * 7]),
+    "full": ([[1] * 7] * 2, [[1] * 16] * 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank", list(BANKS))
+def test_flash_head_dim_256_memory_bank(dev, bank):
+    """The tracker's cross-attention: 4096 queries against the 28736-key
+    bank, kv segment ids its validity; whole invalid frames are skipped tile
+    by tile, the pointer tile is masked per key. Two launches at one shape
+    with other banks are recorded with each launch's segment ids."""
+    rng = np.random.default_rng(len(bank))
+    lq, lk = 4096, 7 * 4096 + 64
+    q = _bf16(rng, (2, lq, 1, 256), dev)
+    k, v = (_bf16(rng, (2, lk, 1, 256), dev) for _ in range(2))
+    qs = torch.ones(2, lq, dtype=torch.int32, device=dev)
+    ks = _bank_segments(dev, *BANKS[bank])
+    tatt.reset_launches()
+    out = tatt.flash_attention(q, k, v, segment_ids=qs, kv_segment_ids=ks, scale=1 / 16)
+    full = _bank_segments(dev, *BANKS["full"])
+    tatt.flash_attention(q, k, v, segment_ids=qs, kv_segment_ids=full, scale=1 / 16)
+    [(key, (count, segs))] = tatt.flash_attention.shapes.items()
+    assert count == 2 and torch.equal(segs[0][1], ks) and torch.equal(segs[1][1], full)
+    ref = tatt.mha_reference(q, k, v, segment_ids=qs, kv_segment_ids=ks, scale=1 / 16)
+    assert torch.isfinite(out).all() and _rel_err(out, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_flash_segment_record_is_bounded(dev):
+    """The wrapper keeps the segment ids of a call's first SEGMENT_RECORDS
+    launches and counts every launch: a long track holds a bounded record."""
+    rng = np.random.default_rng(10)
+    q = _bf16(rng, (1, 64, 1, 256), dev)
+    seg = torch.ones(1, 64, dtype=torch.int32, device=dev)
+    tatt.reset_launches()
+    n = tatt.SEGMENT_RECORDS + 3
+    for _ in range(n):
+        tatt.flash_attention(q, q, q, segment_ids=seg, kv_segment_ids=seg)
+    [(_, (count, segs))] = tatt.flash_attention.shapes.items()
+    assert count == n and len(segs) == tatt.SEGMENT_RECORDS
+
+
+@pytest.mark.cuda
+def test_flash_head_dim_256_rows_without_keys_are_zero(dev):
+    """A batch row whose bank has no valid key visits no kv tile and gives
+    zeros (the Pallas kernel's rule; the plain version gives mean(V)); the
+    other row, one valid frame, matches the plain version."""
+    rng = np.random.default_rng(8)
+    lq, lk = 1024, 7 * 1024 + 64
+    q = _bf16(rng, (2, lq, 1, 256), dev)
+    k, v = (_bf16(rng, (2, lk, 1, 256), dev) for _ in range(2))
+    qs = torch.ones(2, lq, dtype=torch.int32, device=dev)
+    ks = _bank_segments(dev, [[0, 0, 0, 1, 0, 0, 0], [0] * 7], [[0] * 16] * 2, ltok=1024)
+    out = tatt.flash_attention(q, k, v, segment_ids=qs, kv_segment_ids=ks, scale=1 / 16)
+    ref = tatt.mha_reference(q, k, v, segment_ids=qs, kv_segment_ids=ks, scale=1 / 16)
+    assert torch.all(out[1] == 0)
+    assert _rel_err(out[:1], ref[:1]) < TOL
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_head_dim_256(dev):
+    """No backward kernel at D = 256 (the tracker does not train): the
+    backward raises, and so does a forward that would need it, before any
+    launch."""
+    rng = np.random.default_rng(9)
+    q, k, v, o, do = (_bf16(rng, (1, 128, 1, 256), dev) for _ in range(5))
+    lse = torch.zeros(1, 1, 128, device=dev)
+    tatt.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.flash_attention_bwd(q, k, v, o, lse, do)
+    with pytest.raises(ValueError, match="backward"):
+        tatt.flash_attention(q.requires_grad_(), k, v)
+    assert tatt.flash_attention.launches == 0 and tatt.flash_attention_bwd.launches == 0
+    with torch.no_grad():
+        tatt.flash_attention(q, k, v)
+    assert tatt.flash_attention.launches == 1
+
+
 # ---- the tensor-core forward tiles (csrc/attention_mma.cuh) ----------------
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 72, 80, 128])
+@pytest.mark.parametrize("d", [16, 72, 80, 128, 256])
 def test_flash_lse_matches_plain(dev, d):
     """The forward's log-sum-exp (the backward's residual) against the plain
     one, causal with segments and GQA: within 1e-2 on rows with a key; -inf
