@@ -31,6 +31,23 @@ Phases, each timed on its own line:
      tokens; then one answer with the int8 options (int8 LM and tower, W8A8
      prefill, int8 KV cache). Each chat path is a path of its own: counts
      reset before its cold call and read after it;
+  4b. stom: STOM region QA (BASELINE config 5) on the int4 chat of phase 4:
+     `run_inference(chat_int4, 2 VideoInfer items, use_stom=True,
+     batch_size=2)` (a rectangle overlay on key frame 0, a mask overlay on
+     key frame 3) with CoTracker3 at the official width (the config of
+     `cotracker3_official.npz`: 160x224, 4 iterations, bf16; random weights
+     from the seed at flax's initialiser scales; no weight file is read),
+     its launches counted from the cold call; the tracker's seconds a clip
+     cold and warm, single and batch of 2, N per item, the STOM leg against
+     the answer_batch leg, peak memory, the busy share of a warm
+     `propagate_in_video` with its top device ops; the tracker in f32 (TF32
+     off) on the card against the CPU at one refinement iteration (tracks
+     within TRACK_TOL_PX, logits within LOGIT_TOL of their max, composited
+     frames byte-identical but near rounding ties; four iterations logged
+     beside the CPU's own sensitivity), track_batch against track in f32,
+     and in bf16 each iteration of the batch's forward against single ones
+     (iteration 1 within BATCH_BF16_FACTOR of bf16 against f32 on the card,
+     bf16 card against bf16 CPU logged beside);
   5. plain route: the same LLM forward and one SAM chunk with attention and
      the fused blocks routed to the plain versions, on the same weights; then
      the earlier unfused Hiera path (`unfused(cfg)`) on the
@@ -118,6 +135,19 @@ CHAT_TOL = 5e-2
 # flash launches at head dim 256 in one 8-frame track: Sam2Config's 4 memory
 # attention layers x (self + cross) x the 7 frames that read memory
 TRACK_D256 = 4 * 2 * 7
+# the STOM tracker in f32 (TF32 off), card against CPU: tracks in input
+# pixels, vis / conf logits against their max|logit|; composited frames
+# byte-identical except where the mean flow lies within TIE_MARGIN px of a
+# rounding tie; track_batch against per-clip track (tests/test_cotracker3.py:327)
+TRACK_TOL_PX = 1e-2
+LOGIT_TOL = 1e-3
+TIE_MARGIN = 0.01
+BATCH_TOL_PX = 5e-2
+BATCH_VIS = 0.95
+# bf16 track_batch against track at refinement iteration 1: within this
+# factor of the same clip's bf16-vs-f32 difference (max and mean), as
+# tests/test_torch_cotracker3_spread.py holds the port to the reference
+BATCH_BF16_FACTOR = 1.25
 TRAIN_STEPS = 5  # untraced train steps on one batch (the first at lr 0), then one traced
 TRAIN_SAM_FRAMES = 4  # TrainConfig.num_frames_sam
 TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <= 80)
@@ -919,6 +949,277 @@ def tracker_phase(model, proc, frames, expressions, read_path) -> dict:
 
 
 # --------------------------------------------------------------------------
+# STOM region QA (BASELINE config 5) on the int4 serving chat
+# --------------------------------------------------------------------------
+
+
+def stom_config():
+    """The config embedded in the repo's `cotracker3_official.npz`: the
+    official CoTracker3 dims (`cotracker3_offline_config()`: latent 128, 4
+    levels, radius 3, hidden 384, 8 heads, 3 + 3 blocks, 64 virtual tracks)
+    at model resolution 160x224, 4 iterations, bf16 compute."""
+    from rga3_tpu_torch.models.stom.cotracker3 import cotracker3_offline_config
+
+    return cotracker3_offline_config().replace(
+        model_resolution=(160, 224), iters=4, compute_dtype="bfloat16")
+
+
+def region_items(frames):
+    """Two VideoInfer items on the smoke's video, each with an RGBA overlay
+    drawn in numpy: a red rectangle outline on key frame 0, and a
+    half-transparent ellipse mask on key frame 3."""
+    import numpy as np
+
+    h, w = frames[0].shape[:2]
+    rect = np.zeros((h, w, 4), np.uint8)
+    rect[140:340, 280:580] = (255, 0, 0, 255)
+    rect[144:336, 284:576] = 0
+    yy, xx = np.mgrid[:h, :w]
+    mask = np.zeros((h, w, 4), np.uint8)
+    mask[((yy - 260) / 90.0) ** 2 + ((xx - 500) / 140.0) ** 2 < 1] = (30, 220, 90, 128)
+    return [
+        {"id": "rect", "frames": frames, "question": "What is the marked object doing?",
+         "vip_overlay": rect, "key_idx": 0, "shape": "rectangle"},
+        {"id": "mask", "frames": frames, "question": "What color is the marked region?",
+         "vip_overlay": mask, "key_idx": 3, "shape": "mask"},
+    ]
+
+
+def mean_flow(tracks, vis, key, idx):
+    """The (dx, dy) `STOM._compose_from_tracks` translates a rectangle
+    overlay by on frame idx, or None where it leaves the frame as it is."""
+    import numpy as np
+
+    flows = tracks[idx][vis[idx]] - tracks[key][vis[idx]]
+    if len(flows) == 0:
+        return None
+    mags = np.linalg.norm(flows, axis=1)
+    median = np.median(mags)
+    mad = np.median(np.abs(mags - median))
+    kept = flows[(mags >= median - 3 * mad) & (mags <= median + 3 * mad)]
+    if len(kept) < vis[idx].shape[0] // 2:
+        return None
+    return float(np.mean(kept[:, 0])), float(np.mean(kept[:, 1]))
+
+
+def stom_phase(chat4, frames, seed, card_line, read_path) -> dict:
+    """`run_inference(chat4, 2 region items, use_stom=True, batch_size=2)`
+    with the full-width CoTracker3 (random weights from the seed, flax's
+    initialiser scales) on the card, its launches read after it; one
+    `propagate_in_video` cold, warm and traced; the tracker in f32 on the
+    card against the same weights on the CPU; track_batch against track.
+    Returns the path's (launches, calls)."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.evaluation.videoinfer import run_inference
+    from rga3_tpu_torch.models.stom.cotracker3 import CoTracker3Offline, CoTracker3Predictor
+    from rga3_tpu_torch.models.stom.stom import STOM
+    from rga3_tpu_torch.ops.attention import reset_launches
+
+    cfg = stom_config()
+    model = CoTracker3Offline(cfg).to("cuda")
+    model.init_weights(torch.Generator("cuda").manual_seed(seed))
+    model.eval()
+    log(f"stom: CoTracker3 {cfg}, {sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"params (f32, computing in bf16), random from the seed; {card_line}")
+    pred = CoTracker3Predictor(model)
+    times = {"track": [], "track_batch": []}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)  # numpy results: the device work has ended
+            times[name].append(time.perf_counter() - t1)
+            return out
+        return run
+
+    pred.track = timed("track", pred.track)
+    pred.track_batch = timed("track_batch", pred.track_batch)
+    stom = STOM(tracker=pred)
+    items = region_items(frames)
+    masks = [STOM._query_mask(it["vip_overlay"]) for it in items]
+    n_pts = [min(len(pred._mask_points(m, 100)), pred.max_points) for m in masks]
+    log(f"stom: tracked points N per item (100x100 grid in the query disc, at most "
+        f"{pred.max_points}): " + ", ".join(f"{it['id']} {n}" for it, n in zip(items, n_pts)))
+
+    out_dir = os.path.join(HERE, "build", "stom_phase")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "preds.jsonl")
+    if os.path.exists(out_path):
+        os.remove(out_path)  # run_inference resumes past the ids it finds
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t1 = time.perf_counter()
+    n = run_inference(chat4, items, out_path, use_stom=True, batch_size=2, stom=stom,
+                      stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    path = read_path()
+    launches = path[0]
+    per_forward = 7 * chat4.model.cfg.text.num_hidden_layers + 1
+    forwards = chat4.last_stats["forwards"]
+    with open(out_path) as f:
+        preds = [json.loads(line) for line in f]
+    log(f"stom run_inference (2 items, batch_size 2, int4 chat, {CHAT_TOKENS} new tokens): "
+        f"{wall:.3f} s; STOM leg {stats['stom_s']:.3f} s (track_batch of 2, cold "
+        f"{times['track_batch'][0]:.3f} s), answer_batch leg {stats['answer_s']:.3f} s "
+        f"(prefill {chat4.last_stats['prefill_s']:.4f} s, {forwards} forwards); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the bf16 "
+        f"UniGR and the int4 copy included); {card_line}")
+    log(f"stom answers: {[(p['id'], p['pred'][:60]) for p in preds]}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if n != 2 or len(preds) != 2 or not all(isinstance(p["pred"], str) and p["pred"].strip()
+                                            for p in preds):
+        raise AssertionError(f"stom run_inference: {n} answers written, {preds}")
+    if launches["int4_matmul"] != per_forward * forwards or launches["flash_attention"] <= 0:
+        raise AssertionError(f"stom run_inference: {launches['int4_matmul']} int4 launches for "
+                             f"{forwards} forwards, flash {launches['flash_attention']}")
+
+    # the tracker alone: batch of 2 warm, then one propagate_in_video cold and warm
+    arrs = [list(it["frames"]) for it in items]
+    idxs = [it["key_idx"] for it in items]
+    batch = pred.track_batch(arrs, masks, idxs)
+    rect = items[0]
+    t1 = time.perf_counter()
+    single = stom.propagate_in_video(list(frames), rect["vip_overlay"], 0)
+    cold = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    stom.propagate_in_video(list(frames), rect["vip_overlay"], 0)
+    warm = time.perf_counter() - t1
+    t_len = len(frames)
+    log(f"stom tracker ({t_len}-frame 480x854 clips, pre-resized to 160x224 on the card): "
+        f"single cold {times['track'][0]:.4f} s, warm {times['track'][1]:.4f} s a clip; batch "
+        f"of 2 cold {times['track_batch'][0] / 2:.4f} s, warm {times['track_batch'][1] / 2:.4f} "
+        f"s a clip; propagate_in_video cold {cold:.4f} s, warm {warm:.4f} s (compositing "
+        f"{warm - times['track'][1]:.4f} s of it); {card_line}")
+    for (tr, vis), m in zip(batch, n_pts):
+        if tr.shape != (t_len, m, 2) or not np.isfinite(tr).all():
+            raise AssertionError(f"stom: tracks {tr.shape}, finite {np.isfinite(tr).all()}")
+    if len(single) != t_len or single[0].shape != frames[0].shape:
+        raise AssertionError("stom: propagate_in_video returned the wrong frames")
+    busy = device_breakdown(lambda: stom.propagate_in_video(list(frames), rect["vip_overlay"], 0))
+    log(f"profile (propagate_in_video, 8 frames): device busy in the traced call / wall of the "
+        f"untraced warm call: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}; "
+        f"{card_line}")
+
+    # f32 (TF32 off since phase 1) on the card against the CPU, same weights.
+    # Refinement multiplies a rounding difference many times over (the flow
+    # embedding runs at up to ~1000 rad a grid pixel), so the gates hold one
+    # iteration and the four are logged beside the CPU's own floor.
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    by_iters = {}
+    for iters in (1, cfg.iters):
+        c32 = cfg.replace(compute_dtype="float32", iters=iters)
+        gm, cm = CoTracker3Offline(c32).cuda(), CoTracker3Offline(c32)
+        gm.load_state_dict(sd)
+        cm.load_state_dict(sd)
+        by_iters[iters] = (CoTracker3Predictor(gm.eval()), CoTracker3Predictor(cm.eval(), device="cpu"))
+    pts = pred._mask_points(masks[0], 100)
+    outs = {}
+    for iters, (pg, pc) in by_iters.items():
+        for name, p in (("card", pg), ("cpu", pc)):
+            prep = p._prep(list(frames), pts, 0)
+            video, q, n_q, back = prep
+            t1 = time.perf_counter()
+            raw = p._forward([prep])
+            outs[iters, name] = ({k: v[0].float().cpu().numpy() for k, v in raw.items()},
+                                 video, q, n_q, back)
+            log(f"stom f32 {iters}-iteration forward on the {name}: "
+                f"{time.perf_counter() - t1:.3f} s")
+    (g1, vid_g, q, n_q, back), (c1, vid_c, *_) = outs[1, "card"], outs[1, "cpu"]
+    if not torch.equal(vid_g.cpu(), vid_c):
+        raise AssertionError("stom: the pre-resize differs between the card and the CPU")
+    track_err = np.abs((g1["tracks"][-1] - c1["tracks"][-1])[:, :n_q] * back).max()
+    logit_err = max(np.abs(g1[k] - c1[k]).max() / np.abs(c1[k]).max() for k in ("vis", "conf"))
+    tg, vg = by_iters[1][0]._finish(g1["tracks"][-1], g1["vis"], g1["conf"], n_q, back)
+    tc, vc = by_iters[1][1]._finish(c1["tracks"][-1], c1["vis"], c1["conf"], n_q, back)
+    fallback = [bool(v[0].mean() < 0.5) for v in (vg, vc)]  # track_in_video's rule
+    vg, vc = (np.ones_like(v) if fb else v for v, fb in zip((vg, vc), fallback))
+    rgb = STOM._frames_to_rgb(frames)
+    comp_g = stom._compose_from_tracks(rgb, tg, vg, rect["vip_overlay"], 0, "rectangle")
+    comp_c = stom._compose_from_tracks(rgb, tc, vc, rect["vip_overlay"], 0, "rectangle")
+    excepted, differ, moved = 0, [], 0
+    for f in range(t_len):
+        flow = mean_flow(tc, vc, 0, f) if f else None
+        near_tie = flow is not None and any(abs(abs(v - math.floor(v)) - 0.5) < TIE_MARGIN
+                                            for v in flow)
+        moved += flow is not None
+        if near_tie:
+            excepted += 1
+        elif not np.array_equal(comp_g[f], comp_c[f]):
+            differ.append(f)
+    log(f"stom card vs CPU, f32, 1 iteration, item rect ({n_q} points): tracks max err "
+        f"{track_err:.3e} px (tol {TRACK_TOL_PX}), vis/conf logits max err / max|logit| "
+        f"{logit_err:.3e} (tol {LOGIT_TOL}), visibility equal on {(vg == vc).mean():.4f} "
+        f"(key-frame fallback to all visible: card {fallback[0]}, CPU {fallback[1]}); "
+        f"composited frames: {t_len - excepted - len(differ)} of {t_len} byte-identical, "
+        f"{excepted} excepted within {TIE_MARGIN} px of a rounding tie, {moved} frames "
+        f"translated; {card_line}")
+    if track_err > TRACK_TOL_PX or logit_err > LOGIT_TOL or differ:
+        raise AssertionError(f"stom: the card disagrees with the CPU (frames {differ})")
+    gi, ci = outs[cfg.iters, "card"][0], outs[cfg.iters, "cpu"][0]
+    with torch.inference_mode():  # the CPU against itself, input moved 1e-3 of a level
+        nudged = by_iters[cfg.iters][1].model(vid_c[None].float() + 1e-3, torch.from_numpy(q[None]))
+    floor = nudged["tracks"][0].numpy()
+    for it in range(cfg.iters):
+        log(f"stom card vs CPU, f32, {cfg.iters} iterations, iteration {it + 1}: tracks max err "
+            f"{np.abs((gi['tracks'][it] - ci['tracks'][it])[:, :n_q] * back).max():.3e} px; "
+            f"the CPU with its input moved by 1e-3 of a level: "
+            f"{np.abs((floor[it] - ci['tracks'][it])[:, :n_q] * back).max():.3e} px")
+
+    # bf16: the batch's forward (track_batch's) against single ones (track's)
+    # on the card, each iteration, beside two other roundings of the same
+    # clip at iteration 1: bf16 against f32 on the card, and bf16 on the card
+    # against bf16 on the CPU. Iteration 1 of the batch must lie within
+    # BATCH_BF16_FACTOR of bf16 against f32 (max and mean); later iterations
+    # are logged
+    cpu16 = CoTracker3Offline(cfg)
+    cpu16.load_state_dict(sd)
+    cpu16 = CoTracker3Predictor(cpu16.eval(), device="cpu")
+    preps = [pred._prep(arrs[j], pred._mask_points(masks[j], 100), idxs[j])
+             for j in range(len(items))]
+    tr_batch = pred._forward(preps)["tracks"].float().cpu().numpy()
+    for j, (it, prep) in enumerate(zip(items, preps)):
+        n_j, back_j = prep[2], prep[3]
+
+        def diff(a, b):
+            d = np.abs((a - b)[:, :n_j] * back_j)
+            return d.max(), d.mean()
+
+        tr_single = pred._forward([prep])["tracks"][0].float().cpu().numpy()
+        tr_f32 = by_iters[cfg.iters][0]._forward([prep])["tracks"][0].float().cpu().numpy()
+        prep_cpu = (prep[0].cpu(),) + tuple(prep[1:])
+        tr_cpu = cpu16._forward([prep_cpu])["tracks"][0].float().numpy()
+        gaps = [diff(tr_batch[j, i], tr_single[i]) for i in range(cfg.iters)]
+        spread, cpu_gap = diff(tr_f32[0], tr_single[0]), diff(tr_cpu[0], tr_single[0])
+        log(f"stom bf16 track_batch vs track on the card, item {it['id']}: by iteration, "
+            f"max / mean |tracks| diff "
+            + ", ".join(f"{g[0]:.3e} / {g[1]:.3e}" for g in gaps)
+            + f" px; at iteration 1, bf16 vs f32 on the card {spread[0]:.3e} / {spread[1]:.3e} "
+            f"px, bf16 card vs bf16 CPU {cpu_gap[0]:.3e} / {cpu_gap[1]:.3e} px (gate: the batch "
+            f"within {BATCH_BF16_FACTOR} x bf16 vs f32); {card_line}")
+        if not all(g <= BATCH_BF16_FACTOR * r for g, r in zip(gaps[0], spread)):
+            raise AssertionError("stom: bf16 track_batch differs from track beyond the bf16 "
+                                 "rounding at iteration 1")
+    del cpu16
+
+    # track_batch against track on the card (f32, one iteration)
+    pg = by_iters[1][0]
+    got = pg.track_batch(arrs, masks, idxs)
+    for j, it in enumerate(items):
+        tr_s, vis_s = pg.track(arrs[j], masks[j], idxs[j])
+        err, agree = np.abs(got[j][0] - tr_s).max(), (got[j][1] == vis_s).mean()
+        log(f"stom f32 track_batch vs track on the card, item {it['id']}: max err {err:.3e} px "
+            f"(tol {BATCH_TOL_PX}), visibility equal on {agree:.4f} (at least {BATCH_VIS})")
+        if not (err <= BATCH_TOL_PX and agree >= BATCH_VIS):
+            raise AssertionError("stom: track_batch disagrees with track")
+    del model, pred, stom, by_iters
+    torch.cuda.empty_cache()
+    return {"region_qa": path}
+
+
+# --------------------------------------------------------------------------
 # a small model on the card against the same weights on the CPU
 # --------------------------------------------------------------------------
 
@@ -1097,7 +1398,8 @@ def chat_phase(model, proc, frames, read_path) -> dict:
     """Phase 4 on the bf16 UniGR `model`: float chat, the int4 serving copy
     (cold with its launches asserted, warm, traced, answer_batch of 4), the
     cache check and the int8 options. Returns the chat paths' (launches,
-    calls), each read by `read_path()` right after its cold call."""
+    calls), each read by `read_path()` right after its cold call, and the
+    int4 chat (for phase 4b)."""
     import torch
     from rga3_tpu_torch.evaluation.segmentor import UniGRChat
     from rga3_tpu_torch.models.qwen25vl.generate import greedy_generate
@@ -1207,7 +1509,7 @@ def chat_phase(model, proc, frames, read_path) -> dict:
         raise AssertionError("KV-cached decode disagrees with the forward without a cache")
     rel4 = ((steps[0, 0] - float_steps[0, 0]).abs().max() / float_steps[0, 0].abs().max()).item()
     log(f"int4 vs float prefill logits (same weights, quantized): max err / max|logit| {rel4:.3e}")
-    del qwen4, chat4, chat16, nocache, rows, steps
+    del chat16, nocache, rows, steps
     torch.cuda.empty_cache()
 
     # the int8 options: int8 LM and tower, W8A8 prefill, int8 KV cache
@@ -1229,7 +1531,7 @@ def chat_phase(model, proc, frames, read_path) -> dict:
         raise AssertionError("int8 options: non-finite logits")
     del qwen8, chat8, steps8, float_steps
     torch.cuda.empty_cache()
-    return paths
+    return paths, chat4
 
 
 def train_batch(frames, cfg, seed, model_device):
@@ -1666,8 +1968,16 @@ def main() -> int:
 
     # ---- 4. chat: KV-cached decode in float and in int4 serving, same video
     t0 = time.perf_counter()
-    paths.update(chat_phase(model, proc, frames, read_path))
+    chat_paths, chat4 = chat_phase(model, proc, frames, read_path)
+    paths.update(chat_paths)
     log(f"phase chat: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 4b. STOM region QA: overlay propagation + int4 answer_batch
+    t0 = time.perf_counter()
+    paths.update(stom_phase(chat4, frames, seed, card_line, read_path))
+    del chat4
+    torch.cuda.empty_cache()
+    log(f"phase stom: {time.perf_counter() - t0:.2f} s")
 
     # ---- 5. the plain route, called explicitly, on the same weights
     t0 = time.perf_counter()

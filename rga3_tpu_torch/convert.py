@@ -22,11 +22,14 @@ and only the leaves change:
 Every subtree maps: a key the port lacks makes
 `load_state_dict(strict=True)` fail.
 `load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
-exporter writes, with numpy alone.
+exporter writes, and `load_keystr_npz` the self-describing `keystr`-keyed
+npz of its CoTracker3 weights, with numpy alone.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+import json
+import re
+from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,3 +118,27 @@ def load_params_npz(path: str) -> Dict[str, object]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = arr
     return tree
+
+
+def load_keystr_npz(path: str) -> Tuple[Dict[str, object], Dict[str, Any]]:
+    """An npz keyed by `jax.tree_util.keystr` paths
+    (`"['params']['fnet']['conv1']['kernel']"`) with a `__config__` JSON
+    entry -> (nested f32 numpy tree, the config dict); f16 leaves are read
+    as f32."""
+    tree: Dict[str, object] = {}
+    with np.load(path) as z:
+        config = json.loads(bytes(z["__config__"].tobytes()).decode())
+        for key in z.files:
+            if key == "__config__":
+                continue
+            parts = re.findall(r"\['([^']*)'\]", key)
+            if not parts or "".join(f"['{p}']" for p in parts) != key:
+                raise ValueError(f"{path}: {key!r} is not a keystr path")
+            arr = z[key]
+            if arr.dtype == np.float16:
+                arr = arr.astype(np.float32)
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = arr
+    return tree, config

@@ -1,10 +1,14 @@
-"""Frame-index samplers: the port's own copy of the samplers in
-`rga3_tpu/data/templates.py`."""
+"""Frame-index samplers and prompt templates: the port's own copy of the
+parts of `rga3_tpu/data/templates.py` it uses."""
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
+
+REFERRING_VQA_PROMPT = (
+    "Look at the marked region and then answer the question. {text}"
+)
 
 
 def uniform_sample(total_len: int, sample_num: int) -> List[int]:
