@@ -48,6 +48,23 @@ Phases, each timed on its own line:
      and in bf16 each iteration of the batch's forward against single ones
      (iteration 1 within BATCH_BF16_FACTOR of bf16 against f32 on the card,
      bf16 card against bf16 CPU logged beside);
+  4c. serve: the demo server's service from `rga3_tpu_torch.serve`'s
+     `build_service` (`--model_dir dummy --model_size 7b --int4 --draft_dir
+     dummy --spec_k 4`: the int4 UniGR, int8 tower, SAM2 Hiera-L, random
+     weights from the seed, and a bf16 Qwen2.5-VL-3B draft), the int4
+     UniGR written by `save_quantized` under build/ and built again from
+     that directory (every tensor bit-equal); then `serve` on a free
+     localhost port with a `load_video` for uploaded .npy frames (the card
+     has no OpenCV), driven over HTTP: /health and /, /api/qa plain,
+     through the target as its own draft and through the 3B draft (each
+     answer the direct plain greedy answer of the same frames), four
+     concurrent /api/qa coalesced by the batcher (each answer the direct
+     answer_batch's, in the batcher's order), /api/segment (its RLEs
+     decode to the direct `segment_video` masks); each request a path (its
+     launches read after its cold call); request wall over HTTP against
+     the direct call, ms per token by decode route, acceptance, the
+     self-draft's forwards timed one by one (M = 1 against the M = 5
+     verify), peak memory;
   5. plain route: the same LLM forward and one SAM chunk with attention and
      the fused blocks routed to the plain versions, on the same weights; then
      the earlier unfused Hiera path (`unfused(cfg)`) on the
@@ -148,6 +165,12 @@ BATCH_VIS = 0.95
 # factor of the same clip's bf16-vs-f32 difference (max and mean), as
 # tests/test_torch_cotracker3_spread.py holds the port to the reference
 BATCH_BF16_FACTOR = 1.25
+# phase 4c: new tokens of the plain and self-draft answers, of the 3B-draft
+# answer, the draft's proposals an iteration, the batcher's window
+SERVE_TOKENS = 32
+SERVE_DRAFT_TOKENS = 16
+SERVE_K = 4
+SERVE_WINDOW_MS = 250
 TRAIN_STEPS = 5  # untraced train steps on one batch (the first at lr 0), then one traced
 TRAIN_SAM_FRAMES = 4  # TrainConfig.num_frames_sam
 TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <= 80)
@@ -1220,6 +1243,359 @@ def stom_phase(chat4, frames, seed, card_line, read_path) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the demo server at Qwen2.5-VL-7B int4 + Hiera-L, with a 3B draft
+# --------------------------------------------------------------------------
+
+
+def sample_frames(frames, num_frames=None):
+    """(frames, indices) as `data.video.load_frames_from_video` samples a
+    video's frames: `num_frames` by `get_sparse_indices`, else all."""
+    from rga3_tpu_torch.data.templates import get_sparse_indices
+
+    idxs = (get_sparse_indices(len(frames), num_frames) if num_frames is not None
+            else list(range(len(frames))))
+    return [frames[i] for i in idxs], idxs
+
+
+def npy_video_loader(path, num_frames=None, sample_fps=None):
+    """The server's `load_video` on the card (no OpenCV there): an uploaded
+    `.npy` of (T, H, W, 3) uint8 frames."""
+    import numpy as np
+
+    return (*sample_frames(list(np.load(path)), num_frames), 25.0)
+
+
+def npy_bytes(arr) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def post_multipart(url, fields, files):
+    """POST a multipart form; returns the decoded JSON reply."""
+    import urllib.request
+
+    boundary = "rga3smokeboundary"
+    body = b""
+    for k, v in fields.items():
+        body += (f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n'
+                 f"{v}\r\n").encode()
+    for k, (fname, data) in files.items():
+        body += (f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; '
+                 f'filename="{fname}"\r\nContent-Type: application/octet-stream\r\n\r\n'
+                 ).encode() + data + b"\r\n"
+    body += f"--{boundary}--\r\n".encode()
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = json.loads(r.read())
+    if "error" in out:
+        raise AssertionError(f"{url}: the server answered {out['error']}")
+    return out
+
+
+def first_divergence(chat, a: str, b: str, frames, question) -> str:
+    """Where two answers part, with the plain route's top-2 logit margin
+    there (over max|logit|), from a teacher-forced pass of the plain
+    tokens."""
+    import torch
+
+    wa, wb = a.split(), b.split()
+    i = next((j for j, (x, y) in enumerate(zip(wa, wb)) if x != y), min(len(wa), len(wb)))
+    toks = torch.tensor([[int(w.replace("tok", "")) for w in wa]]) if all(
+        w.startswith("tok") for w in wa) else None
+    if toks is None or i >= toks.shape[1]:
+        return f"answers part at word {i}"
+    inputs = chat.prepare([chat.encode(question, video_frames=frames)])
+    lg = teacher_forced_logits(chat.model, inputs, toks)[0, i]
+    top2 = lg.topk(2).values
+    return (f"answers part at token {i}: plain {wa[i]}, other {wb[i]}; the plain route's "
+            f"top-2 margin there {(top2[0] - top2[1]).item() / lg.abs().max().item():.3e} "
+            f"of max|logit|")
+
+
+def int4_verify_calls(qwen4, card_line) -> None:
+    """The verify's int4 products at M = SERVE_K + 1 on the 7B LM's weights,
+    per projection: `int4_matmul` (decode launches of at most
+    INT4_DECODE_ROWS rows) against one prefill-tile launch of all the rows
+    (`int4_matmul_launch`) and against M = 1, in device ms from CUDA-graph
+    replays; both routes against the plain version, and the shipped
+    route's rows bit-equal to one-row calls."""
+    import torch
+    from rga3_tpu_torch.ops import quant as tq
+
+    layer = qwen4.lm.model.layers_0
+    mods = {"q_proj": layer.self_attn.q_proj, "k_proj": layer.self_attn.k_proj,
+            "o_proj": layer.self_attn.o_proj, "gate_proj": layer.mlp.gate_proj,
+            "down_proj": layer.mlp.down_proj, "lm_head": qwen4.lm.lm_head}
+    gen = torch.Generator("cuda").manual_seed(0)
+    m = SERVE_K + 1
+    for name, mod in mods.items():
+        q, s = mod.kernel_q4, mod.scale_g
+        x = rand((m, mod.in_features), gen)
+        y, tile, ref = tq.int4_matmul(x, q, s), tq.int4_matmul_launch(x, q, s), \
+            tq.int4_matmul_reference(x, q, s)
+        rows = all(torch.equal(y[i], tq.int4_matmul(x[i:i + 1], q, s)[0]) for i in range(m))
+        ones = torch.ones(m, dtype=torch.bool, device="cuda")
+        rel, rel_t = row_rel_err(y, ref, ones)[0], row_rel_err(tile, ref, ones)[0]
+        ms = {label: time_graph(fn, [None], 20) for label, fn in (
+            ("M = 1", lambda _: tq.int4_matmul(x[:1], q, s)),
+            (f"M = {m} shipped", lambda _: tq.int4_matmul(x, q, s)),
+            (f"M = {m} prefill tile", lambda _: tq.int4_matmul_launch(x, q, s)))}
+        log(f"serve int4 verify call {name} (in {mod.in_features}, out {mod.out_features}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; row err / max|ref| shipped {rel:.3e}, tile {rel_t:.3e} (tol {ROW_TOL}); "
+            f"rows equal to one-row calls: {rows}; {card_line}")
+        if not rows or max(rel, rel_t) > ROW_TOL:
+            raise AssertionError(f"serve int4 verify call {name}: rows differ from one-row "
+                                 "calls or from the plain version")
+
+
+def serve_phase(frames, seed, card_line, read_path) -> dict:
+    """Phase 4c: `python -m rga3_tpu_torch.serve`'s service built by
+    `build_service` at Qwen2.5-VL-7B int4 (int8 tower) + SAM2 Hiera-L with
+    a bf16 Qwen2.5-VL-3B draft, random weights from the seed; the int4
+    UniGR written by `save_quantized` and built again from the directory
+    (every tensor bit-equal); then the server on a free localhost port,
+    driven over HTTP: /health, /, /api/qa plain, through the target as its
+    own draft and through the 3B draft (each answer the direct plain
+    greedy answer), four concurrent /api/qa coalesced by the batcher (each
+    the direct `answer_batch` answer in the batcher's order), /api/segment
+    (the RLEs decode to the direct masks). Each request is a path, its
+    launches read after its cold call. Returns the paths."""
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.evaluation.segmentor import UniGRChat
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.ops.quant import INT4_DECODE_ROWS, save_quantized
+    from rga3_tpu_torch.serve.__main__ import build_model, build_service, parse_args
+    from rga3_tpu_torch.serve.app import QABatcher, serve
+    from rga3_tpu_torch.utils import rle
+
+    paths = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    args = parse_args(["--model_dir", "dummy", "--model_size", "7b", "--int4",
+                       "--draft_dir", "dummy", "--spec_k", str(SERVE_K), "--seed", str(seed),
+                       "--max_new_tokens", str(SERVE_DRAFT_TOKENS)])
+    service = build_service(args, load_video=npy_video_loader)
+    torch.cuda.synchronize()
+    spec3b = service.chat
+    model, proc, draft = service.segmentor.model, service.segmentor.processor, spec3b.draft_model
+    log(f"serve: build_service (dummy 7B int4 UniGR + Hiera-L, bf16 3B draft of "
+        f"{sum(p.numel() for p in draft.parameters()) / 1e9:.3f} B params) "
+        f"{time.perf_counter() - t1:.2f} s; {(torch.cuda.memory_allocated() - base) / 2**30:.2f} "
+        f"GiB on the card; {card_line}")
+
+    # the pre-quantized route: save, build again from the directory, compare
+    qdir = os.path.join(HERE, "build", "serve_quant")
+    shutil.rmtree(qdir, ignore_errors=True)
+    t1 = time.perf_counter()
+    save_quantized(model, qdir, {"bits": 4, "mode": "int4", "arch": "unigr", "source": "dummy"})
+    t_save = time.perf_counter() - t1
+    size = sum(os.path.getsize(os.path.join(qdir, f)) for f in os.listdir(qdir))
+    t1 = time.perf_counter()
+    model2, _ = build_model(parse_args(["--model_dir", qdir, "--model_size", "7b"]))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t1
+    sd, sd2 = model.state_dict(), model2.state_dict()
+    differ = [k for k in sd if sd2.get(k) is None or sd[k].dtype != sd2[k].dtype
+              or not torch.equal(sd[k], sd2[k])]
+    n_int = sum(1 for k in sd if not sd[k].is_floating_point())
+    log(f"serve: save_quantized {size / 1e9:.3f} GB in {t_save:.2f} s, built again from it in "
+        f"{t_load:.2f} s; {len(sd)} tensors ({n_int} int8), {len(differ)} differ")
+    if differ or set(sd) != set(sd2):
+        raise AssertionError(f"pre-quantized round trip: {differ[:5]} differ")
+    del model2, sd2, sd
+    shutil.rmtree(qdir)
+    torch.cuda.empty_cache()
+
+    upload = {"video": ("frames.npy", npy_bytes(np.stack(frames)))}
+    qa_frames = sample_frames(frames, service.max_qa_frames)[0]
+    question = "What is happening in this video? Describe it in detail."
+    plain = UniGRChat(model, proc, max_new_tokens=SERVE_TOKENS)
+    selfd = UniGRChat(model, proc, max_new_tokens=SERVE_TOKENS, draft_model=model.qwen,
+                      spec_k=SERVE_K)
+    httpd = serve(service, port=0, background=True, host="127.0.0.1")
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(url + "/", timeout=30) as r:
+            index = r.read()
+        if health != {"status": "ok"} or b"UniGR" not in index:
+            raise AssertionError(f"serve: /health {health}, / {len(index)} bytes")
+
+        def request(name, chat, tokens):
+            """Cold request over HTTP (its launches the path `name`), the
+            direct plain greedy answer, and the request's answer against it."""
+            service.chat = chat
+            reset_launches()
+            t = time.perf_counter()
+            ans = post_multipart(url + "/api/qa", {"question": question}, upload)["answer"]
+            wall = time.perf_counter() - t
+            paths[name] = read_path()
+            launched, calls = paths[name]
+            if launched["flash_attention"] <= 0 or launched["int4_matmul"] <= 0:
+                raise AssertionError(f"serve {name}: flash or int4 was not launched")
+            # the verify's SERVE_K + 1 rows ride in decode launches of at
+            # most INT4_DECODE_ROWS (M = 1 is every one-token forward's)
+            if chat.draft_model is not None and not any(
+                    key[0] == INT4_DECODE_ROWS for key in calls["int4_matmul"]):
+                raise AssertionError(f"serve {name}: no int4 launch at M = {INT4_DECODE_ROWS}")
+            st = dict(chat.last_stats)
+            ref_chat = plain if tokens == SERVE_TOKENS else UniGRChat(
+                model, proc, max_new_tokens=tokens)
+            t = time.perf_counter()
+            ref = ref_chat.answer(question, video_frames=qa_frames)
+            direct = time.perf_counter() - t
+            emitted = st.get("emitted", st["forwards"])
+            ms_tok = st["decode_s"] * 1e3 / max(1, emitted - 1)
+            log(f"serve {name}: HTTP {wall:.3f} s (cold), direct plain greedy {direct:.3f} s; "
+                f"prefill {st['prefill_s']:.4f} s, {emitted} tokens, decode "
+                f"{st['decode_s']:.4f} s = {ms_tok:.3f} ms per token after the first"
+                + (f"; {st['steps']} verify steps, {st['draft_forwards']} draft forwards, "
+                   f"{st['accepted']} of {SERVE_K * st['steps']} proposals accepted"
+                   if "steps" in st else "")
+                + f"; launches { {k: n for k, n in paths[name][0].items() if n} }; {card_line}")
+            if ans != ref:
+                raise AssertionError(f"serve {name}: the answer over HTTP is not the plain "
+                                     f"greedy answer; "
+                                     + first_divergence(ref_chat, ref, ans, qa_frames, question))
+            return wall, direct, ms_tok
+
+        wall, direct, plain_ms = request("serve_qa_plain", plain, SERVE_TOKENS)
+        t = time.perf_counter()
+        post_multipart(url + "/api/qa", {"question": question}, upload)
+        warm_http = time.perf_counter() - t
+        t = time.perf_counter()
+        plain.answer(question, video_frames=qa_frames)
+        warm_direct = time.perf_counter() - t
+        log(f"serve: plain /api/qa warm {warm_http:.3f} s over HTTP against {warm_direct:.3f} s "
+            f"direct: {(warm_http - warm_direct) * 1e3:.1f} ms of server a request "
+            f"({len(upload['video'][1]) / 1e6:.1f} MB upload); {card_line}")
+        self_ms = request("serve_qa_self_draft", selfd, SERVE_TOKENS)[2]
+        st = selfd.last_stats
+        if st["accepted"] != SERVE_K * st["steps"]:
+            raise AssertionError(f"serve self-draft: {st['accepted']} of {SERVE_K * st['steps']} "
+                                 "proposals accepted; the target as its own draft takes all")
+        spec3b_ms = request("serve_qa_3b_draft", spec3b, SERVE_DRAFT_TOKENS)[2]
+
+        # the self-draft's forwards timed one by one (a synchronize after each)
+        times = {}
+
+        def timed(mod, name):
+            fwd = mod.forward
+
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fwd(*a, **kw)
+                torch.cuda.synchronize()
+                ids = a[0] if a else kw["input_ids"]
+                times.setdefault((name, ids.shape[1]), []).append(time.perf_counter() - t)
+                return out
+            mod.forward = run
+
+        timed(model.qwen, "target")
+        try:
+            selfd.answer(question, video_frames=qa_frames)
+        finally:
+            del model.qwen.forward
+        med = {key: statistics.median(v) * 1e3 for key, v in times.items() if key[1] <= SERVE_K + 1}
+        log("serve: self-draft forwards, synchronized, median ms: "
+            + ", ".join(f"M = {m} {v:.2f} ({len(times[('target', m)])}x)"
+                        for (_, m), v in sorted(med.items()))
+            + f"; ms per token: plain {plain_ms:.3f}, self-draft {self_ms:.3f}, 3B draft "
+            f"{spec3b_ms:.3f}; {card_line}")
+
+        int4_verify_calls(model.qwen, card_line)
+
+        # four concurrent requests, coalesced by the batcher
+        batcher = QABatcher(plain, max_batch=4, window_ms=SERVE_WINDOW_MS, lock=service.lock)
+        taken = []
+        answer_batch = plain.answer_batch
+
+        def recorded(questions, **kw):
+            taken.append(list(questions))
+            return answer_batch(questions, **kw)
+
+        plain.answer_batch = recorded
+        service.chat, service.batcher = plain, batcher
+        questions = [question, "What color is the largest object?",
+                     "How many people are visible?", "Where is the camera pointing?"]
+        answers, errors = {}, []
+
+        def ask(q):
+            try:
+                answers[q] = post_multipart(url + "/api/qa", {"question": q}, upload)["answer"]
+            except BaseException as e:  # raised below, in this thread
+                errors.append(e)
+
+        reset_launches()
+        t = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(q,)) for q in questions]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        paths["serve_qa_batch4"] = read_path()
+        service.batcher = None
+        batcher.close()
+        del plain.answer_batch
+        if errors:
+            raise errors[0]
+        t = time.perf_counter()
+        ref = plain.answer_batch(taken[0], video_frames_list=[qa_frames] * len(taken[0]))
+        direct = time.perf_counter() - t
+        log(f"serve batch: 4 concurrent /api/qa in {wall:.3f} s (window {SERVE_WINDOW_MS} ms), "
+            f"batch_sizes {batcher.batch_sizes}; direct answer_batch {direct:.3f} s; "
+            f"{card_line}")
+        if batcher.batch_sizes != [4] or [answers[q] for q in taken[0]] != ref:
+            raise AssertionError("serve batch: not coalesced into one answer_batch of 4, or "
+                                 "the answers differ from the direct answer_batch")
+
+        # /api/segment: the RLEs against a direct segment_video
+        reset_launches()
+        t = time.perf_counter()
+        out = post_multipart(url + "/api/segment", {"expression": "the person on the left"},
+                             upload)
+        wall = time.perf_counter() - t
+        paths["serve_segment"] = read_path()
+        t = time.perf_counter()
+        masks = service.segmentor.segment_video(frames, "the person on the left")
+        direct = time.perf_counter() - t
+        got = np.stack([rle.decode(m) for m in out["masks"]]).astype(bool)
+        log(f"serve segment: HTTP {wall:.3f} s (cold), direct segment_video {direct:.3f} s; "
+            f"{out['num_frames']} frames, foreground {got.mean():.4f}; launches "
+            f"{ {k: n for k, n in paths['serve_segment'][0].items() if n} }; {card_line}")
+        if got.shape != masks.shape or not np.array_equal(got, masks):
+            raise AssertionError("serve segment: the RLE masks differ from segment_video's")
+        missing = [k for k in SEGMENT_KERNELS + ("int4_matmul",)
+                   if paths["serve_segment"][0][k] <= 0]
+        if missing:
+            raise AssertionError(f"serve segment: {missing} not launched")
+        log(f"serve: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"(the phase-3 bf16 UniGR included); {card_line}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    del service, model, draft, spec3b, plain, selfd
+    torch.cuda.empty_cache()
+    return paths
+
+
+# --------------------------------------------------------------------------
 # a small model on the card against the same weights on the CPU
 # --------------------------------------------------------------------------
 
@@ -1978,6 +2354,11 @@ def main() -> int:
     del chat4
     torch.cuda.empty_cache()
     log(f"phase stom: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 4c. the demo server: int4 UniGR + 3B draft, driven over HTTP
+    t0 = time.perf_counter()
+    paths.update(serve_phase(frames, seed, card_line, read_path))
+    log(f"phase serve: {time.perf_counter() - t0:.2f} s")
 
     # ---- 5. the plain route, called explicitly, on the same weights
     t0 = time.perf_counter()

@@ -20,7 +20,9 @@ and only the leaves change:
     norm's). Every other leaf is cast to `dtype`.
 
 Every subtree maps: a key the port lacks makes
-`load_state_dict(strict=True)` fail.
+`load_state_dict(strict=True)` fail. `flax_tree_from_torch` is the
+inverse, from a module (whose types tell a Dense kernel from an Embed
+table and a conv from a transposed conv).
 `load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
 exporter writes, and `load_keystr_npz` the self-describing `keystr`-keyed
 npz of its CoTracker3 weights, with numpy alone.
@@ -102,6 +104,49 @@ def torch_state_dict_from_flax(
         else:
             out[key] = t.to(dtype)
     return out
+
+
+# flax's nn.LayerNorm names its weight `scale`: in UniGR only the Hiera
+# trunk's block norms; every other norm is the JAX package's own module,
+# whose weight is `weight`
+FLAX_SCALE_NORMS = re.compile(r"(^|\.)image_encoder\.trunk\.blocks_\d+\.norm[12]$")
+
+
+def _flax_leaf(module: torch.nn.Module, parent: str, name: str, t: torch.Tensor):
+    """(flax leaf name, numpy array in flax layout) for one state-dict
+    entry `name` of `module` (at path `parent`): the inverse of `_leaf`."""
+    x = t.detach().cpu()
+    if name == "weight" and isinstance(module, torch.nn.Embedding):
+        return "embedding", x.numpy()
+    if name == "weight" and isinstance(module, torch.nn.Linear):
+        return "kernel", x.t().numpy()
+    if name == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
+        return "kernel", x.permute(2, 3, 0, 1).flip(0, 1).numpy()
+    if name == "weight" and isinstance(module, torch.nn.Conv2d):
+        return "kernel", x.permute(2, 3, 1, 0).numpy()
+    if name == "weight" and x.dim() == 1 and FLAX_SCALE_NORMS.search(parent):
+        return "scale", x.numpy()
+    if name in NCHW_PARAMS:
+        return name, x.permute(0, 2, 3, 1).numpy()
+    return name, x.numpy()
+
+
+def flax_tree_from_torch(model: torch.nn.Module) -> Dict[str, Any]:
+    """The JAX package's nested numpy parameter tree (without the top-level
+    "params") of a port module: float leaves in f32, the quantized layers'
+    int8 kernels and f32 scales as they are."""
+    tree: Dict[str, Any] = {}
+    for key, t in model.state_dict().items():
+        parent, _, name = key.rpartition(".")
+        module = model.get_submodule(parent) if parent else model
+        if t.is_floating_point():
+            t = t.float()
+        leaf, arr = _flax_leaf(module, parent, name, t)
+        node = tree
+        for p in parent.split(".") if parent else ():
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(arr, order="C")
+    return tree
 
 
 def load_params_npz(path: str) -> Dict[str, object]:

@@ -153,6 +153,11 @@ class WordTokenizer:
                 )
         return {"input_ids": ids}
 
+    def decode(self, ids) -> str:
+        """Specials by name, other ids as `tok<id>` (word ids do not invert)."""
+        inv = {v: k for k, v in self.SPECIALS.items()}
+        return " ".join(inv.get(int(i), f"tok{int(i)}") for i in ids)
+
 
 class QwenVLProcessor:
     """Tokenizer + vision preprocessing."""

@@ -9,7 +9,8 @@ decoded against the shared features, bilinear resize to the frame size and
 sigmoid > 0.5.
 
 `UniGRChat.answer` / `answer_batch`: KV-cached greedy decoding of an
-answer to a question about a video, images or text alone.
+answer to a question about a video, images or text alone; with a draft
+model, `answer` decodes speculatively (the same tokens).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from ..data.processor import ChatMessage, QwenVLProcessor
 from ..data.templates import get_sparse_indices
-from ..models.qwen25vl.generate import greedy_generate
+from ..models.qwen25vl.generate import greedy_generate, speculative_greedy_generate
 from ..models.qwen25vl.positions import get_rope_index
 from ..models.qwen25vl.vision import compute_vision_layout, layout_device_args
 from ..models.unigr.model import UniGR
@@ -167,19 +168,21 @@ PAD_TOKEN_ID = 151643  # <|endoftext|>
 class UniGRChat:
     """Free-form QA (the VideoInfer / VideoRefer / ViP-Bench paths). Takes a
     `Qwen25VL` or a `UniGR` composite (whose `qwen` it keeps) and runs on
-    its device and dtype. `last_stats` holds the last call's prefill and
-    decode seconds and forward count (`greedy_generate`'s `stats`)."""
+    its device and dtype. With a `draft_model` (a smaller Qwen2.5-VL on the
+    same device, which gets the same vision inputs), `answer` runs
+    `speculative_greedy_generate` with `spec_k` proposals an iteration;
+    `answer_batch` stays greedy. `last_stats` holds the last call's prefill
+    and decode seconds and forward counts (the generators' `stats`)."""
 
     def __init__(self, model, processor: QwenVLProcessor, max_new_tokens: int = 64,
-                 draft_model=None):
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_model) is not ported yet")
+                 draft_model=None, spec_k: int = 4):
         if not hasattr(model.cfg, "vision"):  # a UniGR composite
             model = model.qwen
         self.model = model
         self.processor = processor
         self.max_new_tokens = max_new_tokens
+        self.draft_model = draft_model
+        self.spec_k = spec_k
         self.last_stats: Dict[str, float] = {}
 
     def encode(self, question: str, video_frames=None, images=None):
@@ -249,7 +252,18 @@ class UniGRChat:
                suppress_ids: Sequence[int] = ()) -> str:
         """One answer; the prompt is right-padded to a multiple of 64."""
         enc = self.encode(question, video_frames, images)
-        toks = self._generate([enc], 64, suppress_ids)
+        if self.draft_model is None:
+            toks = self._generate([enc], 64, suppress_ids)
+        else:
+            inputs = self.prepare([enc], 64)
+            stats: Dict[str, float] = {}
+            toks, _ = speculative_greedy_generate(
+                self.model, self.draft_model, **inputs, k=self.spec_k,
+                draft_pixel_patches=inputs["pixel_patches"],
+                draft_vision_layout=inputs["vision_layout"],
+                max_new_tokens=self.max_new_tokens, eos_token_id=EOS_TOKEN_ID,
+                pad_token_id=PAD_TOKEN_ID, suppress_ids=suppress_ids, stats=stats)
+            self.last_stats = stats
         return self._decode_row(toks[0].tolist())
 
     def _decode_row(self, ids) -> str:

@@ -21,7 +21,8 @@ import torch.utils.checkpoint
 from ...ops import rope as rope_ops
 from ...ops.attention import flash_attention, mha_reference
 from ...ops.quant import (
-    int4_group, int4_matmul, int8_matmul, int8_w8a8_matmul, quantize_int4, quantize_int8,
+    INT4_DECODE_ROWS, int4_group, int4_matmul, int8_matmul, int8_w8a8_matmul, quantize_int4,
+    quantize_int8,
 )
 from .config import QwenTextConfig
 
@@ -40,6 +41,10 @@ class RMSNorm(nn.Module):
 
 # per-layer cache planes; the scale planes exist only for int8 caches
 CACHE_PLANES = ("k", "v", "k_scale", "v_scale")
+# cached forwards of up to this many tokens attend one query at a time
+# (`Attention._cached_attention`), as the int4 products take up to this many
+# rows in decode launches (`ops.quant.int4_matmul`)
+ROW_EXACT_TOKENS = 2 * INT4_DECODE_ROWS
 
 
 def _quantize_kv_i8(t: torch.Tensor):
@@ -203,26 +208,36 @@ class Attention(nn.Module):
         return self.o_proj(out.reshape(b, l, h * hd))
 
     def _cached_attention(self, q, layer_cache, cache_idx, cache_seg, dtype):
-        """GQA-native masked attention of q (B, L, H, hd) over the whole
-        cache in f32: keys after each query's position and pad keys
-        (`cache_seg` 0) get -1e30."""
+        """GQA-native masked attention of q (B, L, H, hd) over the cache's
+        filled prefix in f32: keys after each query's position and pad keys
+        (`cache_seg` 0) get -1e30. A row's sums run over the keys up to its
+        own position, whatever the cache's size, and up to ROW_EXACT_TOKENS
+        queries are computed one at a time (the f32 products' kernels change
+        with L): so each row rounds as a one-token step at its position does,
+        and speculative decoding's verify chooses the tokens greedy decoding
+        would."""
+        l = q.shape[1]
+        if 1 < l <= ROW_EXACT_TOKENS:
+            return torch.cat([
+                self._cached_attention(q[:, i:i + 1], layer_cache, cache_idx + i, cache_seg, dtype)
+                for i in range(l)], 1)
         cfg = self.cfg
         b, l, h, hd = q.shape
         hkv = cfg.num_key_value_heads
-        ck, cv = layer_cache["k"], layer_cache["v"]
+        end = cache_idx + l
+        ck, cv = layer_cache["k"][:, :end], layer_cache["v"][:, :end]
         if "k_scale" in layer_cache:
-            ckf = ck.float() * layer_cache["k_scale"][..., None]
-            cvf = cv.float() * layer_cache["v_scale"][..., None]
+            ckf = ck.float() * layer_cache["k_scale"][:, :end, :, None]
+            cvf = cv.float() * layer_cache["v_scale"][:, :end, :, None]
         else:
             ckf, cvf = ck.float(), cv.float()
-        max_len = ck.shape[1]
         q5 = q.reshape(b, l, hkv, h // hkv, hd).float()
         logits = torch.einsum("bqkgd,bmkd->bkgqm", q5, ckf) * (hd ** -0.5)
-        kpos = torch.arange(max_len, device=q.device)
+        kpos = torch.arange(end, device=q.device)
         qpos = cache_idx + torch.arange(l, device=q.device)
         valid = (kpos[None, :] <= qpos[:, None])[None, None, None]  # causal
         if cache_seg is not None:
-            valid = valid & (cache_seg[:, None, None, None, :] > 0)
+            valid = valid & (cache_seg[:, None, None, None, :end] > 0)
         logits = logits.masked_fill(~valid, -1e30)
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkgqm,bmkd->bqkgd", probs, cvf)

@@ -10,6 +10,7 @@ import torch
 import torch.nn as nn
 
 from ...device import DeviceLike, resolve_device
+from ..init import random_init_
 from .config import Qwen25VLConfig
 from .language import QwenForCausalLM
 from .vision import QwenVisionTower
@@ -45,6 +46,10 @@ class Qwen25VL(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.lm.embed_tokens.weight.dtype
+
+    def init_weights(self, generator: torch.Generator, std: float = 0.02) -> None:
+        """Random weights from `generator` (`models.init.random_init_`)."""
+        random_init_(self.named_parameters(), generator, std)
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,

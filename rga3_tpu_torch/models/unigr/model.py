@@ -20,6 +20,7 @@ from ...device import DeviceLike, resolve_device
 from ...ops import losses as loss_ops
 from ...ops.resize import resize_bilinear, sam_normalize_maybe
 from ...ops.seg_gather import gather_seg_embeddings
+from ..init import random_init_
 from ..qwen25vl.config import Qwen25VLConfig
 from ..qwen25vl.model import Qwen25VL
 from ..sam2.config import Sam2Config
@@ -141,13 +142,5 @@ class UniGR(nn.Module):
         parameters draw last, so that a seed gives every other parameter
         the values it gave before the tracker was ported."""
         tracker = ("memory_attention.", "memory_encoder.", "maskmem_tpos_enc", "no_mem_pos_enc")
-        params = sorted(self.named_parameters(),
-                        key=lambda item: any(t in item[0] for t in tracker))
-        for name, p in params:
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "bias" or leaf.endswith("_lora_b"):
-                p.zero_()
-            elif leaf == "weight" and p.dim() == 1:
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, std, generator=generator)
+        random_init_(sorted(self.named_parameters(),
+                            key=lambda item: any(t in item[0] for t in tracker)), generator, std)

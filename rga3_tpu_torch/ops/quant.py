@@ -135,6 +135,10 @@ def int4_matmul_reference(x: torch.Tensor, kernel_q4: torch.Tensor,
 # of stages of 64 packed rows x 128 output columns, or 144 where 128-column
 # units would overflow one an SM and 144-column ones do not
 INT4_STAGE_ROWS = 64
+# rows of x a decode launch takes; from M = 5 to 2 * INT4_DECODE_ROWS the
+# wrapper launches the decode tile on row chunks of at most this many, so
+# that a row's result does not depend on the rows beside it (M = 1..8)
+INT4_DECODE_ROWS = 4
 
 
 def int4_decode_cols(out: int, sms: int = 132) -> int:
@@ -144,15 +148,15 @@ def int4_decode_cols(out: int, sms: int = 132) -> int:
 
 @functools.lru_cache(maxsize=None)
 def int4_splits(m: int, in_dim: int, out: int, sms: int = 132) -> int:
-    """Splits of the groups of a decode product (M <= 4) over units whose
-    f32 partials the kernel adds in a fixed order: the fewest that give the
+    """Splits of the groups of a decode launch (M <= INT4_DECODE_ROWS) over
+    units whose f32 partials the kernel adds in a fixed order: the fewest that give the
     card 0.8 units an SM, each unit at least two stages (a one-stage unit
     pays a partial's write and sum for 12 KB of loads), or else the most
     such. Decode calls are a few µs, so one unit an SM beats two short ones
     and a second round; measured by `tools/bench_int4.py --sweep`. 1 for a
     prefill and for shapes that take the generic tile (in or out not a
     multiple of 16)."""
-    if m > 4 or in_dim % 16 or out % 16:
+    if m > INT4_DECODE_ROWS or in_dim % 16 or out % 16:
         return 1
     stages = -(-in_dim // 2 // INT4_STAGE_ROWS)
     tiles = -(-out // int4_decode_cols(out, sms))
@@ -200,8 +204,13 @@ def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
 
     On a CUDA tensor it launches the hand-written kernel: x bf16 and
     contiguous, the packed weight int8 and the scales f32, both contiguous
-    and 16-byte aligned, `in` even, any M and `out`. On a CPU tensor it
-    computes `int4_matmul_reference`."""
+    and 16-byte aligned, `in` even, any M and `out`. Up to M = 8 every row
+    takes the decode tile, rows 1-4 in one launch and 5-8 in a second: the
+    tile computes each row alone, in the same order at any M <= 4, so a row
+    rounds as it does at M = 1 (speculative decoding's verify forward then
+    chooses the tokens one-token steps would; the prefill tile, from M = 9,
+    adds the groups in another order). On a CPU tensor it computes
+    `int4_matmul_reference`."""
     refuse_grad("int4_matmul", x)
     half, out = kernel_q4.shape
     in_dim = x.shape[-1]
@@ -211,6 +220,26 @@ def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
             f"and scales {tuple(scale_g.shape)}")
     if x.device.type == "cpu":
         return int4_matmul_reference(x, kernel_q4, scale_g)
+    if not x.is_contiguous():
+        raise ValueError("int4_matmul: x, the packed weight and the scales must be contiguous")
+    lead = x.shape[:-1]
+    m = x.numel() // in_dim
+    x2 = x.view(m, in_dim)
+    if INT4_DECODE_ROWS < m <= 2 * INT4_DECODE_ROWS:
+        y = torch.cat([int4_matmul_launch(x2[:INT4_DECODE_ROWS], kernel_q4, scale_g),
+                       int4_matmul_launch(x2[INT4_DECODE_ROWS:], kernel_q4, scale_g)])
+    else:
+        y = int4_matmul_launch(x2, kernel_q4, scale_g)
+    return y.reshape(*lead, out)
+
+
+def int4_matmul_launch(x: torch.Tensor, kernel_q4: torch.Tensor,
+                       scale_g: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on x (M, in), CUDA tensors only: the decode
+    tile up to M = 4, the prefill tile above (`int4_matmul` chunks M = 5..8
+    into decode launches; this takes them whole)."""
+    out = kernel_q4.shape[1]
+    m, in_dim = x.shape
     if x.device.type != "cuda":
         raise RuntimeError(f"int4_matmul: no kernel for {x.device}")
     if x.dtype != torch.bfloat16:
@@ -223,11 +252,9 @@ def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
         raise ValueError("int4_matmul: inputs on different devices")
     if any(t.data_ptr() % 16 for t in (x, kernel_q4, scale_g)):
         raise ValueError("int4_matmul: inputs must be 16-byte aligned")
-    lead = x.shape[:-1]
-    m = x.numel() // in_dim
     y = torch.empty((m, out), dtype=torch.bfloat16, device=x.device)
     if m == 0:
-        return y.reshape(*lead, out)
+        return y
     splits = int4_splits(m, in_dim, out, _sm_count(x.device.index))
     lib = _kernels.library()
     ws = (_int4_workspace(x.device, _int4_workspace_words(m, out, splits))
@@ -240,7 +267,7 @@ def int4_matmul(x: torch.Tensor, kernel_q4: torch.Tensor,
     )
     _kernels.check(err, "int4_matmul")
     _record(int4_matmul, (m, in_dim, out))
-    return y.reshape(*lead, out)
+    return y
 
 
 register(int4_matmul)
@@ -367,3 +394,62 @@ def dequantize_qwen_params(tree: Dict) -> Dict:
             torch.from_numpy(np.asarray(tree["scale_g"], np.float32))).numpy()
         return out
     return {k: dequantize_qwen_params(v) for k, v in tree.items()}
+
+
+# the pre-quantized checkpoint directory, in the JAX package's format: one
+# safetensors file whose keys are the flax parameter paths joined by "/"
+# (under "params/"; `kernel_q4` / `scale_g` and `kernel_q` / `scale` leaves
+# for the quantized layers, f32 for the float ones) and a meta json with at
+# least `mode` ("int4" or "int8"), so a directory written by either package
+# loads in the other
+QUANT_CKPT_FILE = "rga3_quant.safetensors"
+QUANT_CKPT_META = "rga3_quant.json"
+
+
+def save_quantized(model: nn.Module, out_dir: str, meta: Dict) -> str:
+    """Write an (already quantized) port module, e.g. a `UniGR` whose
+    `qwen` went through `quantize_for_serving`, as a pre-quantized
+    checkpoint directory."""
+    import json
+    import os
+
+    from ..convert import _flatten, flax_tree_from_torch
+    from ..utils import safetensors_io
+
+    flat = {"/".join(("params",) + path): arr
+            for path, arr in _flatten(flax_tree_from_torch(model)).items()}
+    os.makedirs(out_dir, exist_ok=True)
+    safetensors_io.save_file(flat, os.path.join(out_dir, QUANT_CKPT_FILE))
+    with open(os.path.join(out_dir, QUANT_CKPT_META), "w") as f:
+        json.dump(meta, f, indent=2)
+    return out_dir
+
+
+def is_quantized_dir(model_dir: str) -> bool:
+    import os
+
+    return os.path.exists(os.path.join(model_dir, QUANT_CKPT_FILE))
+
+
+def load_quantized(model_dir: str, dtype: torch.dtype = torch.float32
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """Inverse of `save_quantized`: (the port's state dict, float leaves in
+    `dtype` and the quantized ones as stored; the meta dict)."""
+    import json
+    import os
+
+    from ..convert import torch_state_dict_from_flax
+    from ..utils import safetensors_io
+
+    tree: Dict = {}
+    path = os.path.join(model_dir, QUANT_CKPT_FILE)
+    for key, t in safetensors_io.iter_file(path):
+        arr = (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).numpy()
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    with open(os.path.join(model_dir, QUANT_CKPT_META)) as f:
+        meta = json.load(f)
+    return torch_state_dict_from_flax(tree, dtype), meta

@@ -99,12 +99,17 @@ def test_suppress_ids_and_unigr_composite(chats):
 
 
 def test_rejects_mixed_modality_and_draft_model(chats):
+    """Mixed modalities raise; a draft model, refused before speculative
+    decoding was ported, is taken and answers as the chat without it."""
     _, tchat = chats
     with pytest.raises(ValueError):
         tchat.answer_batch(["q"], video_frames_list=[_frames(0)],
                            images_list=[[np.zeros((28, 28, 3), np.uint8)]])
-    with pytest.raises(NotImplementedError):
-        UniGRChat(tchat.model, tchat.processor, draft_model=tchat.model)
+    spec = UniGRChat(tchat.model, tchat.processor, max_new_tokens=4, draft_model=tchat.model,
+                     spec_k=2)
+    frames = _frames(0)
+    assert spec.answer("What is shown?", video_frames=frames) == tchat.answer(
+        "What is shown?", video_frames=frames)
 
 
 @pytest.mark.parametrize("kv_int8", [False, True], ids=["cache", "int8_cache"])

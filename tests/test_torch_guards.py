@@ -13,8 +13,9 @@ from rga3_tpu_torch.ops import attention as tatt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "rga3_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rga3_tpu")
-LAZY_ONLY = ("triton", "PIL", "transformers")  # never at module top level
+# the card has no safetensors package either: the port reads the format itself
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rga3_tpu", "safetensors")
+LAZY_ONLY = ("triton", "PIL", "transformers", "cv2")  # never at module top level
 TOP_LEVEL_ALLOWED = {"torch", "numpy", "scipy", "einops"}
 
 

@@ -552,7 +552,8 @@ def test_fused_kernels_reject_what_they_do_not_take(dev):
 
 
 # ---- the int4 dequant-matmul (csrc/int4_matmul.cu). A grid of M (<= 4 the
-# decode tile, > 4 the prefill tile, ragged at 17 and 300), group-32 scales
+# decode tile, 5-8 two decode launches, > 8 the prefill tile, ragged at 17
+# and 300), group-32 scales
 # (64, 3584, 18944) and per-channel scales (96), out ragged against the
 # 128-column tiles (200: the generic tile); then the Qwen2.5-VL-7B LM's
 # projections: prefill at the tile's token boundaries (64, 128 rows), a
@@ -593,12 +594,32 @@ def test_int4_matmul_matches_plain(dev, m, in_dim, out):
     y = tq.int4_matmul(x, q, s)
     y2 = tq.int4_matmul(x, q, s)
     torch.cuda.synchronize()
-    assert tq.int4_matmul.launches == 2 and y.shape == (m, out) and y.dtype == torch.bfloat16
+    per_call = 2 if tq.INT4_DECODE_ROWS < m <= 2 * tq.INT4_DECODE_ROWS else 1
+    assert tq.int4_matmul.launches == 2 * per_call
+    assert y.shape == (m, out) and y.dtype == torch.bfloat16
     assert torch.equal(y, y2)
     ref = tq.int4_matmul_reference(x, q, s)
     assert torch.isfinite(y).all() and _rel_err(y, ref) < TOL
-    if tq.int4_splits(m, in_dim, out) > 1:
+    if tq.int4_splits(min(m, tq.INT4_DECODE_ROWS), in_dim, out) > 1:
         assert not tq._workspaces[y.device.index][:1024].any()
+    if per_call == 2:  # the prefill tile at these M, one launch
+        tile = tq.int4_matmul_launch(x, q, s)
+        assert torch.isfinite(tile).all() and _rel_err(tile, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dim,out", [(3584, 512), (3584, 18944), (18944, 3584), (96, 256)])
+def test_int4_matmul_rows_do_not_depend_on_m(dev, in_dim, out):
+    """Up to M = 8 a row's bits are those of a one-row call (speculative
+    decoding's verify relies on it)."""
+    from rga3_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(in_dim + out)
+    q, s = _int4_weights(rng, in_dim, out, dev)
+    x = _bf16(rng, (8, in_dim), dev)
+    ones = torch.cat([tq.int4_matmul(x[i:i + 1], q, s) for i in range(8)])
+    for m in range(2, 9):
+        assert torch.equal(tq.int4_matmul(x[:m], q, s), ones[:m]), m
 
 
 @pytest.mark.cuda
