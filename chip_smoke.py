@@ -21,6 +21,19 @@ Phases, each timed on its own line:
      counts and the calls they saw are reset just before the first call and
      read just after it; each kernel must have been launched, and the fused
      Hiera wrappers as often as Hiera-L's blocks say;
+  3b. eval: the benchmark drivers through their CLIs (`eval_vos.main`,
+     `eval_img.main`) at the same width on a model the CLI builds from the
+     seed (`--model_dir dummy --model_size 7b`): a synthetic MeViS tree
+     (EVAL_FRAMES frames at 720x1280, EVAL_EXPRESSIONS expressions, moving
+     ellipses over noise as the ground truth) under build/eval_phase/,
+     infer cold (its launches counted), warm into a fresh tree (the same
+     bytes) and traced (the busy share); the PNGs equal to a direct
+     `segment_video_multi` of the frames read back, bit for bit; a resume
+     that writes nothing; the eval stage (EVAL_WORKERS spawned workers)
+     against the J&F of the direct masks; then `eval_img` on EVAL_IMAGES
+     ReasonSeg-layout images, gIoU / cIoU equal to direct `segment_video`
+     calls (its launches a path of their own); seconds a stage, an
+     expression and an image, PNG writing, peak memory;
   4. chat: `UniGRChat.answer` on the same video with the same bf16 weights
      (the float LM, a bf16 KV cache, 64 new tokens), then on an int4 serving
      copy of the Qwen2.5-VL weights (`quantize_for_serving(..., "int4")` on
@@ -171,6 +184,14 @@ SERVE_TOKENS = 32
 SERVE_DRAFT_TOKENS = 16
 SERVE_K = 4
 SERVE_WINDOW_MS = 250
+# phase 3b: the VOS driver's MeViS tree (a 720p video) and its eval workers
+# (the card's host has 8 cores), the image driver's ReasonSeg images
+EVAL_FRAMES = 64
+EVAL_SIZE = (720, 1280)
+EVAL_EXPRESSIONS = 8
+EVAL_WORKERS = 8
+EVAL_IMAGES = 8
+EVAL_IMAGE_SIZE = (768, 1024)
 TRAIN_STEPS = 5  # untraced train steps on one batch (the first at lr 0), then one traced
 TRAIN_SAM_FRAMES = 4  # TrainConfig.num_frames_sam
 TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <= 80)
@@ -861,6 +882,224 @@ HIERA_L_LAUNCHES = {"fused_window_block": 39, "fused_global_block": 3,
                     "fused_window_block_split": 3, "fused_transition_block": 3,
                     "ln_qkv": 6, "proj_mlp": 3, "proj_ln": 3, "mlp_blocked": 3,
                     "gemm": 4 * 45 + 5 * 3, "layer_norm": 2 * 48, "window_pool2x2": 2 * 3}
+
+
+# --------------------------------------------------------------------------
+# the segmentation benchmark drivers through their CLIs at full width
+# --------------------------------------------------------------------------
+
+
+def _tree_state(root: str) -> dict:
+    """{relative path: (size, mtime_ns)} of every file under root."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            st = os.stat(os.path.join(d, n))
+            out[os.path.relpath(os.path.join(d, n), root)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _files_equal(a: str, b: str, names) -> bool:
+    for rel in names:
+        with open(os.path.join(a, rel), "rb") as fa, open(os.path.join(b, rel), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def _jf_of(args):
+    """(J, F) means of one expression's (T, H, W) ground truth and masks."""
+    import numpy as np
+    from rga3_tpu_torch.evaluation.jf_metrics import db_eval_boundary, db_eval_iou
+
+    gt, pred = args
+    return float(np.mean(db_eval_iou(gt, pred))), float(np.mean(db_eval_boundary(gt, pred)))
+
+
+def eval_phase(seed: int, card_line: str, read_path) -> dict:
+    """Phase 3b: the referring-VOS driver (`python -m
+    rga3_tpu_torch.evaluation.eval_vos`, called in-process through `main`)
+    on a synthetic MeViS tree of EVAL_FRAMES frames at EVAL_SIZE with
+    EVAL_EXPRESSIONS expressions, at Qwen2.5-VL-7B + Hiera-L (bf16, random
+    weights from the seed, built by the CLI): infer cold (launches counted)
+    and warm into a fresh tree (byte-identical), traced into a third; the
+    PNGs equal to a direct `segment_video_multi` of the frames read back,
+    bit for bit; a resume that writes nothing; the eval stage's
+    jf_scores.json equal to the J&F of the direct masks computed here; then
+    the image driver (`eval_img`, ReasonSeg layout, EVAL_IMAGES images) on
+    the same weights, its gIoU / cIoU equal to a recomputation from direct
+    `segment_video` calls. Works under build/eval_phase/."""
+    import glob
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rga3_tpu_torch.data.datasets.image_seg import get_mask_from_json
+    from rga3_tpu_torch.data.video import load_frames_from_dir
+    from rga3_tpu_torch.evaluation import eval_img, eval_vos
+    from rga3_tpu_torch.evaluation.image_seg_eval import evaluate_image_masks
+    from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor, eval_seg_question
+    from rga3_tpu_torch.evaluation.video_seg_eval import load_meta_expressions, resolve_layout
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.tools.synth_trees import write_reason_seg_tree, write_vos_tree
+    from rga3_tpu_torch.utils import rle
+
+    work = os.path.join(HERE, "build", "eval_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    paths = {}
+    t0 = time.perf_counter()
+    tree = write_vos_tree(os.path.join(work, "mevis"), "mevis", split="valid_u", seed=seed,
+                          n_frames=EVAL_FRAMES, size=EVAL_SIZE, n_objects=4,
+                          n_expressions=EVAL_EXPRESSIONS)
+    log(f"eval: MeViS-layout tree, 1 video of {EVAL_FRAMES} frames at {EVAL_SIZE[0]}x"
+        f"{EVAL_SIZE[1]}, {EVAL_EXPRESSIONS} expressions, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data = ["--benchmark", "mevis", "--data_root", tree["data_root"], "--split", "valid_u"]
+    flags = ["--model_dir", "dummy", "--model_size", "7b", "--seed", str(seed)]
+
+    def infer(out, model=None):
+        t = time.perf_counter()
+        res = eval_vos.main(["--stage", "infer", *data, "--out_dir", os.path.join(work, out),
+                             *flags], model=model)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    # cold: the CLI builds the model; the launches of this call are the path's
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    cold, cold_wall = infer("out_cold")
+    launches, calls = read_path()
+    paths["eval_vos"] = (launches, calls)
+    seg = cold["segmentor"]
+    model = (seg.model, seg.processor)
+    chunks = math.ceil(EVAL_FRAMES / seg.sam_chunk)
+    n_png = EVAL_FRAMES * EVAL_EXPRESSIONS
+    log(f"eval: infer cold {cold_wall:.3f} s with the model build, {cold['seconds']['total']:.3f} "
+        f"s of run_inference; {card_line}")
+    log("eval: infer cold host seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in cold["seconds"].items()) + "; segmentor phases: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seg.phase_seconds.items()) + f"; {card_line}")
+    log(f"eval: launches of the cold infer: {launches}")
+    if cold["n"] != EVAL_EXPRESSIONS:
+        raise AssertionError(f"eval: cold infer wrote {cold['n']} expressions")
+    for k in SEGMENT_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"eval: {k} was not launched by the VOS driver")
+    for k, n in HIERA_L_LAUNCHES.items():
+        if launches[k] != n * chunks:
+            raise AssertionError(f"eval: {k}: {launches[k]} launches, {chunks} chunks of "
+                                 f"Hiera-L make {n * chunks}")
+    cold_tree = _tree_state(os.path.join(work, "out_cold"))
+    if len(cold_tree) != n_png:
+        raise AssertionError(f"eval: {len(cold_tree)} PNGs, expected {n_png}")
+
+    # warm, into a fresh tree: the same bytes
+    warm, warm_wall = infer("out_warm", model)
+    log(f"eval: infer warm {warm_wall:.3f} s, {warm_wall / EVAL_EXPRESSIONS:.3f} s an "
+        f"expression, {warm_wall / n_png * 1e3:.2f} ms a mask frame; host seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in warm["seconds"].items())
+        + "; segmentor phases: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in warm["segmentor"].phase_seconds.items())
+        + f"; {card_line}")
+    log(f"eval: PNG writing {warm['seconds']['write_png']:.3f} s for {n_png} masks "
+        f"({warm['seconds']['write_png'] / n_png * 1e3:.2f} ms each); {card_line}")
+    log(f"eval: peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(the phase-3 model and the CLI's); {card_line}")
+    if set(_tree_state(os.path.join(work, "out_warm"))) != set(cold_tree) or not _files_equal(
+            os.path.join(work, "out_cold"), os.path.join(work, "out_warm"), cold_tree):
+        raise AssertionError("eval: the warm infer's PNG tree differs from the cold one's")
+
+    # the device's busy share of a warm infer, traced into a third tree
+    busy = device_breakdown(lambda: infer("out_traced", model))
+    log(f"profile: eval infer device busy in the traced call / wall of the untraced warm "
+        f"call: {busy:.1f} / {warm_wall * 1e3:.1f} ms = {busy / (warm_wall * 1e3):.3f}; "
+        f"{card_line}")
+
+    # the PNGs against a direct segment_video_multi of the frames read back
+    ann, frames_root = resolve_layout(tree["data_root"], "valid_u", "mevis")
+    jobs = load_meta_expressions(ann)
+    frames = load_frames_from_dir(os.path.join(frames_root, jobs[0]["frames_dir"]))
+    direct = UniGRSegmentor(*model, num_frames_mllm=8).segment_video_multi(
+        frames, [j["exp"] for j in jobs],
+        questions=[eval_seg_question(j["exp"], "mevis", is_sent=j["is_sent"]) for j in jobs])
+    bad = 0
+    for e, job in enumerate(jobs):
+        for i, name in enumerate(job["frames"]):
+            png = np.asarray(Image.open(os.path.join(
+                work, "out_cold", job["video"], job["exp_id"], f"{name}.png")))
+            bad += int(not np.array_equal(png, direct[e, i].astype(np.uint8) * 255))
+    log(f"eval: {n_png} PNGs against the direct segment_video_multi masks: {bad} differ; "
+        f"foreground {direct.mean():.4f}")
+    if bad:
+        raise AssertionError(f"eval: {bad} PNGs differ from the direct masks")
+
+    # resume: a second infer into the finished tree writes nothing
+    again, _ = infer("out_cold", model)
+    if again["n"] != 0 or _tree_state(os.path.join(work, "out_cold")) != cold_tree:
+        raise AssertionError(f"eval: the resumed infer wrote {again['n']} expressions")
+
+    # the eval stage (spawned workers) against J&F computed here
+    t = time.perf_counter()
+    scores = eval_vos.main(["--stage", "eval", *data, "--out_dir",
+                            os.path.join(work, "out_cold"), "--num_workers", str(EVAL_WORKERS)])
+    eval_s = time.perf_counter() - t
+    with open(os.path.join(work, "out_cold", "jf_scores.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(tree["data_root"], "valid_u", "mask_dict.json")) as f:
+        mask_dict = json.load(f)
+    gts = []
+    for job in jobs:
+        gt = np.zeros(direct.shape[1:], bool)
+        for aid in job["anno_id"]:
+            for i, a in enumerate(mask_dict[aid]):
+                gt[i] |= rle.decode(a).astype(bool)
+        gts.append(gt)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(EVAL_WORKERS) as ex:
+        jf = list(ex.map(_jf_of, zip(gts, direct)))
+    here_s = time.perf_counter() - t
+    js = np.asarray([x[0] for x in jf])
+    fs = np.asarray([x[1] for x in jf])
+    expect = {"J": float(js.mean()), "F": float(fs.mean()),
+              "J&F": float((js.mean() + fs.mean()) / 2), "n": len(jf)}
+    log(f"eval: eval stage {eval_s:.3f} s with {EVAL_WORKERS} spawned workers "
+        f"({n_png} frames at {EVAL_SIZE[0]}x{EVAL_SIZE[1]}); the same J&F here in "
+        f"{here_s:.3f} s on {EVAL_WORKERS} threads; jf_scores.json {written}; {card_line}")
+    if written != expect or scores != expect:
+        raise AssertionError(f"eval: jf_scores.json {written}, computed here {expect}")
+
+    # the image driver on the same weights
+    rs_dir = write_reason_seg_tree(os.path.join(work, "data"), "val", seed=seed,
+                                   n_images=EVAL_IMAGES, size=EVAL_IMAGE_SIZE)
+    reset_launches()
+    t = time.perf_counter()
+    img_scores = eval_img.main(["--data_root", os.path.join(work, "data"), "--datasets",
+                                "ReasonSeg:val", "--out", os.path.join(work, "img_scores.json"),
+                                *flags], model=model)
+    torch.cuda.synchronize()
+    img_s = time.perf_counter() - t
+    paths["eval_img"] = read_path()
+    img_seg = UniGRSegmentor(*model, num_frames_mllm=1)
+    preds, gts = [], []
+    for path in sorted(glob.glob(os.path.join(rs_dir, "*.jpg"))):
+        img = np.asarray(Image.open(path).convert("RGB"))
+        gt, comments, _ = get_mask_from_json(path.replace(".jpg", ".json"), *img.shape[:2])
+        preds.append(img_seg.segment_video([img], comments[0])[0])
+        gts.append(gt)
+    expect = {"ReasonSeg|val": evaluate_image_masks(preds, gts)}
+    log(f"eval: image driver {img_s:.3f} s for {EVAL_IMAGES} images at {EVAL_IMAGE_SIZE[0]}x"
+        f"{EVAL_IMAGE_SIZE[1]} (cold), {img_s / EVAL_IMAGES:.3f} s an image; scores "
+        f"{img_scores}; {card_line}")
+    if img_scores != expect:
+        raise AssertionError(f"eval: image scores {img_scores}, recomputed {expect}")
+    for k in SEGMENT_KERNELS:
+        if paths["eval_img"][0][k] <= 0:
+            raise AssertionError(f"eval: {k} was not launched by the image driver")
+    del cold, warm, again, seg, model, img_seg
+    torch.cuda.empty_cache()
+    return paths
 
 
 # --------------------------------------------------------------------------
@@ -2341,6 +2580,11 @@ def main() -> int:
     log(f"profile: device busy in the traced call / wall of the untraced warm call "
         f"of this run: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}")
     log(f"phase main_path: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 3b. the benchmark drivers through their CLIs, on a model of their own
+    t0 = time.perf_counter()
+    paths.update(eval_phase(seed, card_line, read_path))
+    log(f"phase eval: {time.perf_counter() - t0:.2f} s")
 
     # ---- 4. chat: KV-cached decode in float and in int4 serving, same video
     t0 = time.perf_counter()

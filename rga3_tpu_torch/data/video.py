@@ -1,10 +1,11 @@
-"""Video frame loading, counterpart of `rga3_tpu/data/video.py`'s
-`load_frames_from_video`. It needs OpenCV (`cv2`), imported when called:
-the card has none, so a server there takes frames through
-`serve.app.UniGRService(load_video=...)`."""
+"""Video frame loading, counterpart of `rga3_tpu/data/video.py`.
+`load_frames_from_video` decodes a video file with OpenCV (`cv2`, imported
+when called); `load_frames_from_dir` reads a directory of frame images (the
+VOS benchmarks' layout) with PIL."""
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -45,3 +46,16 @@ def load_frames_from_video(video_path: str, num_frames: Optional[int] = None,
             pos += 1
     cap.release()
     return [got[i] for i in idxs if i in got], idxs, fps
+
+
+def load_frames_from_dir(frames_dir: str,
+                         indices: Optional[Sequence[int]] = None) -> List[np.ndarray]:
+    """RGB uint8 frames of the .jpg / .jpeg / .png files of a directory in
+    name order, or of the `indices` among them."""
+    from PIL import Image
+
+    names = sorted(f for f in os.listdir(frames_dir)
+                   if f.lower().endswith((".jpg", ".jpeg", ".png")))
+    if indices is not None:
+        names = [names[i] for i in indices]
+    return [np.asarray(Image.open(os.path.join(frames_dir, f)).convert("RGB")) for f in names]

@@ -29,18 +29,44 @@ from ..models.unigr.model import UniGR
 from ..ops.resize import resize_bilinear, resize_u8_bicubic_aa
 
 
-def default_seg_question(expression: str) -> str:
-    """The question the JAX package's `eval_seg_question` builds without a
-    benchmark: question-form expressions keep their phrasing."""
-    expr = expression.strip()
+def eval_seg_question(expression: str, benchmark: Optional[str] = None,
+                      is_sent: bool = False) -> str:
+    """The question of a benchmark's reference driver for an expression.
+
+    - mevis / ytvos / davis: "Please segment the {exp lowercased} in this
+      image.";
+    - revos: a question ending in "?" keeps its phrasing and gets " Please
+      output the segmentation mask."; otherwise a trailing "." is dropped
+      when the expression starts in lower case, then the segment template;
+    - reasonvos: with the metadata's `is_sent`, "{exp}. Please output the
+      segmentation mask.", else the segment template;
+    - None (the demo's heuristic): a question keeps its phrasing with
+      " Please output segmentation mask."; otherwise "Can you segment the
+      ... in this video?".
+    """
+    expr = expression
+    if benchmark == "revos":
+        if expr and expr[-1] == "?":
+            return f"{expr} Please output the segmentation mask."
+        if expr and expr[0].islower() and expr.endswith("."):
+            expr = expr[:-1]
+        return f"Please segment the {expr.lower()} in this image."
+    if benchmark == "reasonvos":
+        if is_sent:
+            return f"{expr}. Please output the segmentation mask."
+        return f"Please segment the {expr.lower()} in this image."
+    if benchmark in ("mevis", "ytvos", "davis"):
+        return f"Please segment the {expr.lower()} in this image."
+    expr = expr.strip()
     if expr.endswith("?"):
         return f"{expr} Please output segmentation mask."
     return f"Can you segment the {expr.rstrip('.').lower()} in this video?"
 
 
 def build_seg_messages(expression: str, question: Optional[str] = None) -> List[ChatMessage]:
-    """Teacher-forced [SEG] conversation."""
-    q = question if question is not None else default_seg_question(expression)
+    """Teacher-forced [SEG] conversation; the question defaults to the
+    demo's (`eval_seg_question(expression)`)."""
+    q = question if question is not None else eval_seg_question(expression)
     return [
         ChatMessage("user", [{"type": "video"}, {"type": "text", "text": q}]),
         ChatMessage("assistant", [{"type": "text", "text": "Sure, [SEG]."}]),

@@ -16,19 +16,14 @@ cannot be built or reports malformed counts. `decode_plain` /
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent.parent.parent
+from .native import ROOT, build_native
+
 SOURCE = ROOT / "native" / "rle.cpp"
-BUILD_DIR = ROOT / "build"
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -42,18 +37,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        target = BUILD_DIR / f"librle_{hashlib.sha256(src).hexdigest()[:16]}.so"
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                out = Path(tmp) / target.name
-                proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", str(out),
-                                       str(SOURCE)], capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"g++ failed on {SOURCE}:\n{proc.stderr}")
-                os.replace(out, target)
-        lib = ctypes.CDLL(str(target))
+        lib = ctypes.CDLL(str(build_native(SOURCE, "librle")))
         lib.rle_decode.argtypes = [_I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _U8P]
         lib.rle_decode.restype = ctypes.c_int32
         lib.rle_encode.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64, _I64P, ctypes.c_int64]

@@ -193,3 +193,23 @@ def test_qwen_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     assert model.lm.lm_head.kernel_q4.device.type == "cpu"
     chat = UniGRChat(model, QwenVLProcessor.from_pretrained("dummy"), max_new_tokens=2)
     assert chat.model.device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["eval_vos", "eval_img"])
+def test_eval_clis_need_cuda_unless_cpu_is_asked(cli, monkeypatch, tmp_path):
+    """The benchmark CLIs build their model on the card: without CUDA they
+    raise unless `--device cpu` is given."""
+    import importlib
+
+    mod = importlib.import_module(f"rga3_tpu_torch.evaluation.{cli}")
+    args = {"eval_vos": ["--stage", "infer", "--out_dir", str(tmp_path / "out")],
+            "eval_img": ["--datasets", "ReasonSeg:val", "--out", str(tmp_path / "s.json")]}[cli]
+    args += ["--data_root", str(tmp_path), "--model_dir", "dummy", "--model_size", "tiny"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(args)
+    assert not (tmp_path / "out").exists() and not (tmp_path / "s.json").exists()
+    from rga3_tpu_torch.models.unigr.build import build_model
+
+    model, _ = build_model(mod.parse_args(args + ["--device", "cpu"]))
+    assert model.device.type == "cpu"
