@@ -67,8 +67,9 @@ Phases, each timed on its own line:
      weights from the seed, and a bf16 Qwen2.5-VL-3B draft), the int4
      UniGR written by `save_quantized` under build/ and built again from
      that directory (every tensor bit-equal); then `serve` on a free
-     localhost port with a `load_video` for uploaded .npy frames (the card
-     has no OpenCV), driven over HTTP: /health and /, /api/qa plain,
+     localhost port with a `load_video` for uploaded .npy frames (this
+     phase decodes no video file; phase 6b decodes mp4 with OpenCV),
+     driven over HTTP: /health and /, /api/qa plain,
      through the target as its own draft and through the 3B draft (each
      answer the direct plain greedy answer of the same frames), four
      concurrent /api/qa coalesced by the batcher (each answer the direct
@@ -103,6 +104,31 @@ Phases, each timed on its own line:
      the losses finite and falling, frozen weights bit-identical, trainable
      ones moved, peak memory, and the kernel route's gradients against the
      plain route's on the same weights and batch;
+  6b. train CLI: `python -m rga3_tpu_torch.train`'s `main` at the release
+     configuration (`configs/release_7b.json`: Qwen2.5-VL-7B with LoRA r 128
+     + SAM2 Hiera-L at 1024^2, 8 MLLM / 4 SAM frames, micro-batch 2, grad
+     accum 8, the ten-dataset mixture at its rates, remat "dots", f32
+     masters) on a model it builds itself (`--model_dir dummy`: the JAX
+     script's crc32-seeded draws), over a synthetic tree in every published
+     layout under build/train_cli/ (`write_train_tree` at TRAIN_CLI_SIZES:
+     COCO-size stills, 720p frame folders, an 8-second 480x854 mp4 written
+     and decoded with OpenCV, a ReasonSeg val split of `val_images` images
+     at 768x1024, all of them validated), 2 prefetch threads; the only cut
+     is the steps (1 an epoch). Run 1: val at start, one step (its
+     launches counted: the flash forward of the LM with segment ids, of the
+     ViT and of Hiera's global blocks, the window attention and the fused
+     Hiera blocks (Hiera-L's counts x the micro-batches), the flash
+     backward once per LM layer and decoder image->token attention per
+     micro-batch), val, a checkpoint. Run 2 (`--epochs 2`): the auto-resume restores the state
+     bit for bit (checksums of every trainable tensor, master and moment),
+     the optimizer's count continues, the step's lr is the schedule's at
+     step 1 and its accumulation batch index the resume offset; then one
+     step, val and a checkpoint. Losses finite, `meta_log_info.json` right.
+     Logged: seconds a step and a micro-batch, host seconds an
+     accumulation batch and the step's wait on the loader, val seconds and
+     gIoU / cIoU, checkpoint seconds and bytes, peak memory, "dots" against
+     "none" on one micro-batch (peak memory, seconds), the busy share of a
+     warm step;
   7. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the paths
      made (shapes, strides, options, segment ids: the flash forward at
@@ -206,6 +232,12 @@ TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <
 # plain, a tensor differs by the backward's own rounding (~1e-2)
 GRAD_TOL = 0.1
 LOSS_TOL = 1e-2
+# phase 6b: the training tree's sizes (published widths; a few items a
+# dataset, 12 frames a video folder) and its ReasonSeg val images
+TRAIN_CLI_SIZES = dict(image=(480, 640), video=(720, 1280), frames=12, mp4=(480, 854),
+                       mp4_frames=240, mp4_fps=30, items=3, val=(768, 1024), val_images=4)
+TRAIN_CLI_MODEL = "7b"
+RELEASE_CONFIG = os.path.join(HERE, "configs", "release_7b.json")
 # kernels (by name) that ptxas must compile without spills
 NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel",
             "int4_tile_kernel")
@@ -1497,8 +1529,8 @@ def sample_frames(frames, num_frames=None):
 
 
 def npy_video_loader(path, num_frames=None, sample_fps=None):
-    """The server's `load_video` on the card (no OpenCV there): an uploaded
-    `.npy` of (T, H, W, 3) uint8 frames."""
+    """The server's `load_video` for phase 4c's uploads: an uploaded `.npy`
+    of (T, H, W, 3) uint8 frames."""
     import numpy as np
 
     return (*sample_frames(list(np.load(path)), num_frames), 25.0)
@@ -2382,16 +2414,252 @@ def train_phase(model, frames, seed, read_path) -> dict:
     return {"train": path}
 
 
-def device_breakdown(run, top: int = 20) -> float:
+def bits_digest(t) -> int:
+    """A position-sensitive checksum of a tensor's bits, on its device:
+    sum over elements of bits x (index mod 65521 + 1) in wrapping int64."""
+    import torch
+
+    flat = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    chunk = 1 << 26
+    for i in range(0, flat.numel(), chunk):
+        c = flat[i:i + chunk].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+        total += (c * w).sum()
+    return int(total)
+
+
+class CountedStep:
+    """A train step that resets the launch counts before its first call and
+    reads the path after it (the entry point's cold step)."""
+
+    def __init__(self, step, read_path, out):
+        self.step, self.read_path, self.out = step, read_path, out
+
+    @property
+    def seconds(self):
+        return self.step.seconds
+
+    def __call__(self, state, micro_batches):
+        import torch
+        from rga3_tpu_torch.ops.attention import reset_launches
+
+        first = "path" not in self.out
+        if first:
+            reset_launches()
+        out = self.step(state, micro_batches)
+        if first:
+            torch.cuda.synchronize()
+            self.out["path"] = self.read_path()
+        return out
+
+
+def train_cli_phase(seed: int, card_line: str, read_path) -> dict:
+    """`python -m rga3_tpu_torch.train`'s `main` at the release config on a
+    synthetic tree: one epoch, then an auto-resumed second (see the module
+    docstring, 6b). Works under build/train_cli/ and deletes it. Returns the
+    cold step's path (launches, calls)."""
+    import gc
+    import shutil
+
+    import torch
+    from rga3_tpu_torch.config import TrainConfig
+    from rga3_tpu_torch.tools.synth_trees import write_train_tree
+    from rga3_tpu_torch.train import __main__ as cli
+    from rga3_tpu_torch.train import checkpoints
+    from rga3_tpu_torch.train.optimizer import lr_schedule
+
+    work = os.path.join(HERE, "build", "train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    data, ckpt = os.path.join(work, "data"), os.path.join(work, "ckpt")
+    with open(RELEASE_CONFIG) as f:
+        release = json.load(f)
+    names, rates = release["dataset"].split(","), release["sample_rates"].split(",")
+    try:
+        import cv2
+
+        log(f"train cli: OpenCV {cv2.__version__} writes and decodes the videoqa mp4")
+    except ImportError:
+        keep = [i for i, n in enumerate(names) if n != "videoqa"]
+        names, rates = [names[i] for i in keep], [rates[i] for i in keep]
+        log("train cli: no OpenCV on this machine: videoqa dropped from the mixture "
+            f"({len(names)} datasets)")
+    t0 = time.perf_counter()
+    write_train_tree(data, names, seed, TRAIN_CLI_SIZES)
+    n_files = sum(len(f) for _, _, f in os.walk(data))
+    n_bytes = sum(os.path.getsize(os.path.join(d, x)) for d, _, fs in os.walk(data) for x in fs)
+    log(f"train cli: tree of {len(names)} datasets ({','.join(names)}) at {TRAIN_CLI_SIZES}: "
+        f"{n_files} files, {n_bytes / 1e6:.1f} MB in {time.perf_counter() - t0:.2f} s")
+    base = ["--config", RELEASE_CONFIG, "--model_dir", "dummy", "--model_size", TRAIN_CLI_MODEL,
+            "--dataset_dir", data, "--ckpt_dir", ckpt, "--dataset", ",".join(names),
+            "--sample_rates", ",".join(rates), "--steps_per_epoch", "1", "--data_workers", "2",
+            "--val_at_start", "--val_samples", str(TRAIN_CLI_SIZES["val_images"])]
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train cli: memory_allocated before the CLI {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB")
+
+    def report(tag, run, wall):
+        for st in run["steps"]:
+            accum = len(run["last_micro_batches"])
+            ph = st["phases"]
+            log(f"train cli {tag}: step (batch {st['batch_idx']}) {st['seconds']:.3f} s, a "
+                f"micro-batch {(ph['forward'] + ph['backward']) / accum:.3f} s (forward "
+                f"{ph['forward']:.3f}, backward {ph['backward']:.3f}, optimizer "
+                f"{ph['optimizer']:.3f} s over {accum}); host {st['host']:.3f} s for the "
+                f"accumulation batch, wait on the loader {st['loader_wait']:.3f} s; lr "
+                f"{st['aux']['lr']:.3e}, grad norm {st['aux']['grad_norm']:.4f}; " + ", ".join(
+                    f"{k} {st['aux'][k]:.5f}" for k in cli.METERS))
+        for label, scores, sec in run["val"]:
+            log(f"train cli {tag}: val {label}: gIoU {scores['gIoU']:.5f} cIoU "
+                f"{scores['cIoU']:.5f} over {scores['n']} images in {sec:.3f} s")
+        for sec, nbytes in run["save"]:
+            log(f"train cli {tag}: checkpoint saved, {nbytes / 1e9:.3f} GB in {sec:.2f} s "
+                f"({nbytes / 1e9 / sec:.2f} GB/s)")
+        if run["restore"]:
+            sec, nbytes = run["restore"]
+            log(f"train cli {tag}: checkpoint restored, {nbytes / 1e9:.3f} GB in {sec:.2f} s")
+        log(f"train cli {tag}: {wall:.2f} s of main; {run['trainable'] / 1e9:.4f} B trainable "
+            f"parameters; peak memory {run['peak_bytes'] / 2**30:.2f} GiB; {card_line}")
+        for st in run["steps"]:
+            if not all(math.isfinite(v) for v in st["aux"].values()):
+                raise AssertionError(f"train cli {tag}: non-finite loss {st['aux']}")
+
+    # run 1: the cold step's launches are the path's
+    cold = {}
+    real_build = cli.build_train_step
+    cli.build_train_step = lambda *a, **k: CountedStep(real_build(*a, **k), read_path, cold)
+    try:
+        t0 = time.perf_counter()
+        run1 = cli.main(base + ["--epochs", "1", "--loss_log", os.path.join(work, "loss1.json")])
+        wall1 = time.perf_counter() - t0
+    finally:
+        cli.build_train_step = real_build
+    report("run 1", run1, wall1)
+    accum = len(run1["last_micro_batches"])
+    cfg = run1["state"].model.cfg
+    launches, calls = cold["path"]
+    lm_d = cfg.qwen.text.head_dim
+    vit_d = cfg.qwen.vision.hidden_size // cfg.qwen.vision.num_heads
+    by_d = {}
+    for key, (n, segs) in calls["flash_attention"].items():
+        d = key[0][-1]
+        seg = segs is not None and any(x is not None for x in segs)
+        by_d[(d, seg)] = by_d.get((d, seg), 0) + n
+    per_mb = cfg.qwen.text.num_hidden_layers + cfg.sam2.twoway_depth
+    log(f"train cli: launches of the cold step {({k: n for k, n in launches.items() if n})}; "
+        f"flash forward by (head dim, segment ids): {by_d}; flash_attention_bwd "
+        f"{launches['flash_attention_bwd']} (expected {accum} micro-batches x {per_mb})")
+    # the LM attends with segment ids (its padding), the ViT's full layers too
+    # (its frames' windows)
+    if not by_d.get((lm_d, True)) or not by_d.get((vit_d, True)):
+        raise AssertionError(f"train cli: the LM (D={lm_d}) or the ViT (D={vit_d}) flash "
+                             f"forward with segment ids was not launched: {by_d}")
+    if launches["window_attention"] <= 0:
+        raise AssertionError("train cli: window_attention was not launched")
+    for k, n in HIERA_L_LAUNCHES.items():
+        if launches[k] != n * accum:
+            raise AssertionError(f"train cli: {k}: {launches[k]} launches, expected {n} x {accum}")
+    if launches["flash_attention_bwd"] != accum * per_mb:
+        raise AssertionError(f"train cli: {launches['flash_attention_bwd']} flash backward "
+                             f"launches, expected {accum * per_mb}")
+    t0 = time.perf_counter()
+    saved = {n: bits_digest(t) for n, t in checkpoints.state_tensors(run1["state"]).items()}
+    log(f"train cli: checksums of {len(saved)} saved tensors in {time.perf_counter() - t0:.2f} s")
+    count1, step1 = run1["state"].opt.count, run1["state"].step
+    loss1 = run1["steps"][0]["aux"]["loss"]
+    del run1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # run 2: auto-resume at epoch 1, one more step
+    seen = {}
+
+    def on_restore(state):
+        seen["count"], seen["step"] = state.opt.count, state.step
+        seen["digest"] = {n: bits_digest(t) for n, t in checkpoints.state_tensors(state).items()}
+
+    t0 = time.perf_counter()
+    run2 = cli.main(base + ["--epochs", "2", "--loss_log", os.path.join(work, "loss2.json")],
+                    on_restore=on_restore)
+    wall2 = time.perf_counter() - t0
+    report("run 2", run2, wall2)
+    state = run2["state"]
+    st = run2["steps"][0]
+    want_lr = lr_schedule(TrainConfig(lr=release["lr"], epochs=2, steps_per_epoch=1))(1)
+    same = sum(seen["digest"].get(n) == d for n, d in saved.items())
+    with open(os.path.join(ckpt, "meta_log_info.json")) as f:
+        meta = json.load(f)
+    log(f"train cli: resumed at epoch {run2['start_epoch']}; restored tensors equal to the "
+        f"saved ones {same} of {len(saved)} (names {set(seen['digest']) == set(saved)}); count "
+        f"{count1} -> restored {seen['count']} -> {state.opt.count}, step {step1} -> "
+        f"{seen['step']} -> {state.step}; lr {st['aux']['lr']:.6e} (schedule at step 1 "
+        f"{want_lr:.6e}); batch index {st['batch_idx']}; losses {loss1:.5f}, "
+        f"{st['aux']['loss']:.5f}; meta_log_info {meta}")
+    if (run2["start_epoch"] != 1 or same != len(saved) or set(seen["digest"]) != set(saved)
+            or (seen["count"], seen["step"]) != (count1, step1) or count1 != 1
+            or state.opt.count != 2 or st["aux"]["lr"] != want_lr or st["batch_idx"] != 1):
+        raise AssertionError("train cli: the resume did not continue the run")
+    metrics = [h["metric"] for h in meta.get("history", [])]
+    if (meta.get("last_epoch") != 1 or [h["epoch"] for h in meta["history"]] != [0, 1]
+            or meta["best_metric"] != max(metrics)
+            or meta["best_epoch"] != meta["history"][metrics.index(max(metrics))]["epoch"]):
+        raise AssertionError(f"train cli: meta_log_info.json {meta}")
+
+    # "dots" against "none" on one micro-batch of the run, on the same weights
+    mbs = run2["last_micro_batches"]
+    lm = state.model.qwen.lm.model
+    peaks = {}
+    for mode in ("none", "dots"):
+        lm.remat = mode
+        state.opt.zero_grad()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state.model.train_forward(**mbs[0])["loss"].backward()
+        torch.cuda.synchronize()
+        peaks[mode] = ((torch.cuda.max_memory_allocated() - resident) / 2**30,
+                       time.perf_counter() - t0, resident / 2**30)
+    lm.remat = "dots"
+    state.opt.zero_grad()
+    log("train cli: one micro-batch (input_ids "
+        f"{tuple(mbs[0]['input_ids'].shape)}), forward + backward: " + "; ".join(
+            f"remat {m}: peak {p:.2f} GiB above the resident {r:.2f} GiB, {sec:.3f} s"
+            for m, (p, sec, r) in peaks.items()) + f"; {card_line}")
+    # where a warm step's device time goes: one step untraced, one traced
+    step = real_build(lambda m, mb: m.train_forward(**mb), state.opt, grad_accum_steps=accum,
+                      timed=True)
+    t0 = time.perf_counter()
+    step(state, mbs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    busy = device_breakdown(lambda: step(state, mbs), host=False)
+    log(f"profile (train cli step, {accum} micro-batches): device busy in the traced step / "
+        f"wall of the untraced warm step: {busy:.1f} / {warm * 1e3:.1f} ms = "
+        f"{busy / (warm * 1e3):.3f}")
+    del run2, state, mbs, lm, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return {"train_cli": cold["path"]}
+
+
+def device_breakdown(run, top: int = 20, host: bool = True) -> float:
     """Run `run()` under torch.profiler, print the device time by kernel
     name and the host wall time around it, and return the device busy ms
-    (the tracer slows the host, so that wall time is not the call's)."""
+    (the tracer slows the host, so that wall time is not the call's).
+    `host=False` traces the device alone (a long run's host events take
+    minutes to aggregate) and prints no host ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2403,11 +2671,13 @@ def device_breakdown(run, top: int = 20) -> float:
         f"{len(evs)} kernel names; top {top}:")
     for e in evs[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
-    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)
-    log(f"profile: host ops by self CPU time (traced, so inflated), top {top // 2}:")
-    for e in host[:top // 2]:
-        log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
+    if host:
+        ops = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)
+        log(f"profile: host ops by self CPU time (traced, so inflated), top {top // 2}:")
+        for e in ops[:top // 2]:
+            log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
+    log(f"profile: {time.perf_counter() - t0:.2f} s with the trace's aggregation")
     return busy_ms
 
 
@@ -2680,6 +2950,11 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     log(f"phase train: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 6b. the training entry point at the release config, with a resume
+    t0 = time.perf_counter()
+    paths.update(train_cli_phase(seed, card_line, read_path))
+    log(f"phase train_cli: {time.perf_counter() - t0:.2f} s")
 
     # ---- 7. each kernel against its plain version, at every call the paths
     # made (shapes, strides, masks and segment ids as recorded); a call's

@@ -95,7 +95,7 @@ class TrainConfig(ConfigBase):
     auto_resume: bool = True
     ckpt_dir: str = "runs/default"
     # LM activation strategy: "full" recomputes whole decoder layers in the
-    # backward, "none" stores everything; "dots" (save the weight products'
-    # outputs) is the JAX package's default and is not ported yet: the
-    # decoder raises on it. bool accepted (True -> "full", False -> "none").
+    # backward, "none" stores everything, "dots" (the JAX package's default)
+    # recomputes them but keeps the weight products' outputs. bool accepted
+    # (True -> "full", False -> "none").
     remat: Any = "dots"

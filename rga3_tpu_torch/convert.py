@@ -112,23 +112,50 @@ def torch_state_dict_from_flax(
 FLAX_SCALE_NORMS = re.compile(r"(^|\.)image_encoder\.trunk\.blocks_\d+\.norm[12]$")
 
 
+def _flax_layout(module: torch.nn.Module, parent: str, name: str, ndim: int):
+    """(flax leaf name, the permutation of the torch dims into flax's or
+    None, whether flax's first two dims are flipped) of state-dict entry
+    `name` of `module` (at path `parent`): the inverse of `_leaf`."""
+    if name == "weight" and isinstance(module, torch.nn.Embedding):
+        return "embedding", None, False
+    if name == "weight" and isinstance(module, torch.nn.Linear):
+        return "kernel", (1, 0), False
+    if name == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
+        return "kernel", (2, 3, 0, 1), True
+    if name == "weight" and isinstance(module, torch.nn.Conv2d):
+        return "kernel", (2, 3, 1, 0), False
+    if name == "weight" and ndim == 1 and FLAX_SCALE_NORMS.search(parent):
+        return "scale", None, False
+    if name in NCHW_PARAMS:
+        return name, (0, 2, 3, 1), False
+    return name, None, False
+
+
 def _flax_leaf(module: torch.nn.Module, parent: str, name: str, t: torch.Tensor):
     """(flax leaf name, numpy array in flax layout) for one state-dict
     entry `name` of `module` (at path `parent`): the inverse of `_leaf`."""
+    leaf, perm, flip = _flax_layout(module, parent, name, t.dim())
     x = t.detach().cpu()
-    if name == "weight" and isinstance(module, torch.nn.Embedding):
-        return "embedding", x.numpy()
-    if name == "weight" and isinstance(module, torch.nn.Linear):
-        return "kernel", x.t().numpy()
-    if name == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
-        return "kernel", x.permute(2, 3, 0, 1).flip(0, 1).numpy()
-    if name == "weight" and isinstance(module, torch.nn.Conv2d):
-        return "kernel", x.permute(2, 3, 1, 0).numpy()
-    if name == "weight" and x.dim() == 1 and FLAX_SCALE_NORMS.search(parent):
-        return "scale", x.numpy()
-    if name in NCHW_PARAMS:
-        return name, x.permute(0, 2, 3, 1).numpy()
-    return name, x.numpy()
+    if perm is not None:
+        x = x.permute(*perm)
+    if flip:
+        x = x.flip(0, 1)
+    return leaf, x.numpy()
+
+
+def flax_path_and_shape(model: torch.nn.Module, key: str, shape) -> Tuple[tuple, tuple]:
+    """(flax parameter path without the top-level "params", flax shape) of
+    state-dict entry `key` of `model` with torch shape `shape`."""
+    parent, _, name = key.rpartition(".")
+    module = model.get_submodule(parent) if parent else model
+    leaf, perm, _ = _flax_layout(module, parent, name, len(shape))
+    fshape = tuple(shape[i] for i in perm) if perm is not None else tuple(shape)
+    return tuple(parent.split(".") if parent else ()) + (leaf,), fshape
+
+
+def torch_leaf(path: tuple, x: np.ndarray) -> np.ndarray:
+    """A flax leaf at `path` (an unquantized model's) in torch layout."""
+    return _leaf(path, x)[1]
 
 
 def flax_tree_from_torch(model: torch.nn.Module) -> Dict[str, Any]:

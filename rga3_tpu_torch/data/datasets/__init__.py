@@ -1,0 +1,1 @@
+from .hybrid import DATASET_REGISTRY, ImgVidHybridDataset  # noqa: F401

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -81,6 +81,11 @@ def run_all_image_seg_vals(segmentor, base_dir: str,
     return out
 
 
+def reason_seg_images(base_dir: str, split: str = "val") -> List[str]:
+    """The sorted images of a ReasonSeg split; empty when it is not on disk."""
+    return sorted(glob.glob(os.path.join(base_dir, "reason_seg", "ReasonSeg", split, "*.jpg")))
+
+
 def run_reason_seg_val(segmentor, base_dir: str, split: str = "val",
                        max_samples: Optional[int] = None) -> Dict[str, float]:
     """ReasonSeg (<base_dir>/reason_seg/ReasonSeg/<split>/*.jpg with a
@@ -89,7 +94,7 @@ def run_reason_seg_val(segmentor, base_dir: str, split: str = "val",
 
     from ..data.datasets.image_seg import get_mask_from_json
 
-    images = sorted(glob.glob(os.path.join(base_dir, "reason_seg", "ReasonSeg", split, "*.jpg")))
+    images = reason_seg_images(base_dir, split)
     if not images:
         raise FileNotFoundError(f"no ReasonSeg {split} images under {base_dir}")
     if max_samples:

@@ -273,23 +273,43 @@ class DecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
-REMAT_MODES = ("none", "full")
+REMAT_MODES = ("none", "full", "dots")
+# the products without batch dimensions: a decoder layer's weight products
+# (q / k / v / o, gate / up / down and the LoRA factors) reach the dispatcher
+# as these, its attention's batched products as bmm
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" remat policy, JAX's `dots_with_no_batch_dims_saveable`:
+    the outputs of the weight products are saved, everything else (norms,
+    RoPE, activations, attention) is recomputed in the backward."""
+    if op in DOT_OPS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    # looked up at each call, so that a caller may wrap the policy
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(dots_policy)
 
 
 def remat_mode(remat: Any) -> str:
     """The decoder's activation strategy from the JAX package's values:
     False / None / "none" store everything; True / "full" recompute each
-    decoder layer in the backward (`torch.utils.checkpoint`). "dots" (keep
-    the weight products' outputs) is not ported and raises."""
+    decoder layer in the backward; "dots" recompute it but keep the weight
+    products' outputs (`dots_policy`). Both run a layer under
+    `torch.utils.checkpoint` (non-reentrant)."""
     mode = {False: "none", None: "none", True: "full"}.get(remat, remat)
     if mode not in REMAT_MODES:
-        raise NotImplementedError(f"remat={remat!r} is not ported (takes {REMAT_MODES})")
+        raise ValueError(f"remat={remat!r}: takes {REMAT_MODES}")
     return mode
 
 
 class QwenLM(nn.Module):
     """Decoder stack over input embeddings with 3-stream M-RoPE ids.
-    `remat` ("none" or "full") applies to the forward without a cache."""
+    `remat` ("none", "full" or "dots") applies to the forward without a
+    cache, under autograd."""
 
     def __init__(self, cfg: QwenTextConfig, remat: Any = "none", **factory):
         super().__init__()
@@ -316,12 +336,13 @@ class QwenLM(nn.Module):
             idx, fresh = cache["idx"], cache["fresh"]
             cache_seg = cache["seg"]
             cache_seg[:, idx:idx + l] = (1 if segment_ids is None else segment_ids)
-        remat = self.remat == "full" and cache is None and torch.is_grad_enabled()
+        remat = self.remat != "none" and cache is None and torch.is_grad_enabled()
+        kw = {"context_fn": _dots_context} if self.remat == "dots" else {}
         for i in range(cfg.num_hidden_layers):
             layer = getattr(self, f"layers_{i}")
             if remat:
                 x = torch.utils.checkpoint.checkpoint(layer, x, cos, sin, segment_ids,
-                                                      use_reentrant=False)
+                                                      use_reentrant=False, **kw)
                 continue
             layer_cache = None
             if cache is not None:

@@ -28,7 +28,7 @@ def scatter_vision_tokens(embeds, input_ids, vision_embeds, image_token_id,
 
 class Qwen25VL(nn.Module):
     """Vision tower + LM, built on the card (or on `device="cpu"` when
-    asked) in `dtype`; `remat` ("none" or "full") is the LM's activation
+    asked) in `dtype`; `remat` ("none", "full" or "dots") is the LM's activation
     strategy in training."""
 
     def __init__(self, cfg: Qwen25VLConfig, device: DeviceLike = None,

@@ -60,9 +60,14 @@ class MLP(nn.Module):
             d_out = output_dim if i == num_layers - 1 else hidden_dim
             setattr(self, f"layers_{i}", nn.Linear(d_in, d_out, **factory))
 
-    def forward(self, x):
+    def forward(self, x, dtype: torch.dtype = None):
+        """`dtype`: compute in it (input and weights cast), else as stored."""
+        if dtype is not None:
+            x = x.to(dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"layers_{i}")(x)
+            layer = getattr(self, f"layers_{i}")
+            x = (layer(x) if dtype is None
+                 else F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype)))
             if i < self.num_layers - 1:
                 x = self.act(x)
         return torch.sigmoid(x) if self.sigmoid_output else x

@@ -69,9 +69,16 @@ class TwoWayTransformer(nn.Module):
 
 
 class MaskDecoder(nn.Module):
+    """`iou_dtype` is the dtype the IoU head computes in (None: the
+    model's). The training entry point sets float32 under f32 masters: the
+    JAX package's f32 parameters promote that head to f32, and the best mask
+    is an argmax over its outputs, which bf16 rounding can tie (a random
+    network predicts 0.5 +- 2e-5 for every mask, all 0.5 in bf16)."""
+
     def __init__(self, cfg: Sam2Config, **factory):
         super().__init__()
         self.cfg = cfg
+        self.iou_dtype = None
         d = cfg.d_model
         self.num_mask_tokens = cfg.num_multimask_outputs + 1
         self.iou_token = nn.Embedding(1, d, **factory)
@@ -125,7 +132,7 @@ class MaskDecoder(nn.Module):
             for i in range(self.num_mask_tokens)
         ], dim=1)  # (B, M, C/8)
         masks = torch.einsum("bmc,bhwc->bmhw", hyper.float(), up.float())
-        iou_pred = self.iou_prediction_head(iou_token_out)
+        iou_pred = self.iou_prediction_head(iou_token_out, self.iou_dtype)
         object_score_logits = self.pred_obj_score_head(hs[:, 0])
         return masks, iou_pred, mask_tokens_out, object_score_logits
 

@@ -14,6 +14,12 @@ arithmetic:
     kept in `adam_mu_dtype`, the second in the parameter's dtype; frozen
     parameters are never touched. (`torch.optim.AdamW` keeps both moments in
     the parameter's dtype, which differs at bf16 parameters.)
+  * with `master_dtype` float32 on a bf16 model (the JAX package's f32
+    parameters with bf16 compute), each trainable tensor has an f32 master:
+    the gradients are summed over the micro-batches in f32, the moments
+    and the update are the f32 parameter's, and the master is written back
+    to the model rounded to bf16. A frozen tensor needs no master: an f32
+    weight cast to bf16 at each use is the bf16 weight.
 
 The global norm is summed in f32 (optax sums each leaf in its own dtype).
 """
@@ -71,30 +77,67 @@ def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
 
 class MaskedAdamW:
     """AdamW over the trainable parameters of `model` (those that require
-    grad), in place on their `.grad`: clip by global norm, Adam moments,
-    decoupled weight decay, `-lr(count)`, added to the parameter in f32 and
-    rounded to its dtype. `state` holds `count`, `mu` and `nu`."""
+    grad): clip by global norm, Adam moments, decoupled weight decay,
+    `-lr(count)`, added to the parameter (or its master) in f32 and rounded
+    to its dtype. `state` holds `count`, `mu`, `nu` and `master`."""
 
-    def __init__(self, cfg: TrainConfig, model: nn.Module):
+    def __init__(self, cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
+                 master_init: Dict[str, torch.Tensor] = None):
         self.cfg = cfg
         self.schedule = lr_schedule(cfg)
         self.mu_dtype = DTYPES[cfg.adam_mu_dtype]
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.count = 0
-        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        # a master starts from `master_init` where given (the values before
+        # rounding to the model's dtype), else from the parameter
+        init = master_init or {}
+        self.master = {n: init.get(n, p.detach()).to(p.device, master_dtype, copy=True)
+                       for n, p in self.params.items()
+                       if master_dtype is not None and p.dtype != master_dtype}
+        # f32 sums of the micro-batches' gradients of the tensors with a master
+        self.grad_sum: Dict[str, torch.Tensor] = {}
+        self.mu = {n: torch.zeros_like(self.value(n), dtype=self.mu_dtype) for n in self.params}
+        self.nu = {n: torch.zeros_like(self.value(n)) for n in self.params}
+
+    def value(self, name: str) -> torch.Tensor:
+        """The tensor the update applies to: the master, else the parameter."""
+        return self.master.get(name, self.params[name])
+
+    @torch.no_grad()
+    def accumulate(self) -> None:
+        """Move the parameters' `.grad` into the f32 sums of the tensors
+        with a master (after each micro-batch's backward)."""
+        for name in self.master:
+            p = self.params[name]
+            if p.grad is None:
+                continue
+            if name in self.grad_sum:
+                self.grad_sum[name].add_(p.grad)
+            else:
+                self.grad_sum[name] = p.grad.to(self.master[name].dtype)
+            p.grad = None
+
+    def grads(self) -> Dict[str, torch.Tensor]:
+        """{name: the gradient the next update takes, or None}."""
+        return {n: self.grad_sum.get(n) if n in self.master else p.grad
+                for n, p in self.params.items()}
+
+    def zero_grad(self) -> None:
+        self.grad_sum = {}
+        for p in self.params.values():
+            p.grad = None
 
     @torch.no_grad()
     def global_norm(self) -> torch.Tensor:
-        sq = [p.grad.float().square().sum() for p in self.params.values() if p.grad is not None]
+        sq = [g.float().square().sum() for g in self.grads().values() if g is not None]
         dev = next(iter(self.params.values())).device
         return torch.stack(sq).sum().sqrt() if sq else torch.zeros((), device=dev)
 
     @torch.no_grad()
     def step(self) -> Dict[str, float]:
-        """One update from the parameters' `.grad` (a parameter without one
-        counts as a zero gradient). Returns the learning rate used and the
-        gradient's global norm before clipping."""
+        """One update from `grads()` (a tensor without one counts as a zero
+        gradient). Returns the learning rate used and the gradient's global
+        norm before clipping."""
         cfg = self.cfg
         b1, b2, eps = cfg.beta1, cfg.beta2, 1e-8
         lr = self.schedule(self.count)
@@ -103,24 +146,29 @@ class MaskedAdamW:
         self.count += 1
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** self.count
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** self.count
-        for name, p in self.params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+        for name, g in self.grads().items():
+            w = self.value(name)
+            g = torch.zeros_like(w) if g is None else g.to(w.dtype)
             if clip:
                 g = (g / gnorm.to(g.dtype)) * cfg.grad_clip
             mu = (1 - b1) * g + b1 * self.mu[name]
             nu = (1 - b2) * g.square() + b2 * self.nu[name]
             upd = (mu / bc1.to(mu.dtype)) / ((nu / bc2.to(nu.dtype)).sqrt() + eps)
             if cfg.weight_decay:
-                upd = upd + cfg.weight_decay * p
+                upd = upd + cfg.weight_decay * w
             upd = torch.tensor(-lr, dtype=upd.dtype) * upd
-            p.copy_((p + upd).to(p.dtype))
+            w.copy_((w + upd).to(w.dtype))
+            if name in self.master:
+                self.params[name].copy_(w)
             self.mu[name] = mu.to(self.mu_dtype)
             self.nu[name] = nu
         return {"lr": lr, "grad_norm": float(gnorm)}
 
 
-def build_optimizer(cfg: TrainConfig, model: nn.Module) -> MaskedAdamW:
+def build_optimizer(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
+                    master_init: Dict[str, torch.Tensor] = None) -> MaskedAdamW:
     """Mark the trainable parameters (`trainable_mask`) and build the masked
-    AdamW over them."""
+    AdamW over them (with `master_dtype` masters where the parameters'
+    dtype differs, from `master_init` where it has the tensor)."""
     trainable_mask(model)
-    return MaskedAdamW(cfg, model)
+    return MaskedAdamW(cfg, model, master_dtype, master_init)

@@ -8,8 +8,9 @@ package's mesh sharding is not ported).
 
 `loss_fn(model, micro_batch)` returns a dict with "loss" (and any other
 scalars); `micro_batches` is a sequence of `grad_accum_steps` micro-batches.
-The gradients of the micro-batches are summed in each parameter's `.grad`
-and divided by their count; the aux dict of the last micro-batch is
+The gradients of the micro-batches are summed (in each parameter's `.grad`,
+or in f32 beside it for a tensor with an f32 master) and divided by their
+count; the aux dict of the last micro-batch is
 returned, detached.
 """
 from __future__ import annotations
@@ -32,9 +33,12 @@ class TrainState:
     step: int = 0
 
 
-def make_train_state(cfg: TrainConfig, model: nn.Module) -> Tuple[TrainState, MaskedAdamW]:
-    """Mark the trainable parameters and build the optimizer over them."""
-    opt = build_optimizer(cfg, model)
+def make_train_state(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
+                     master_init: Dict[str, torch.Tensor] = None
+                     ) -> Tuple[TrainState, MaskedAdamW]:
+    """Mark the trainable parameters and build the optimizer over them
+    (`MaskedAdamW`'s masters in `master_dtype`, from `master_init`)."""
+    opt = build_optimizer(cfg, model, master_dtype, master_init)
     return TrainState(model, opt), opt
 
 
@@ -56,8 +60,7 @@ def build_train_step(loss_fn: Callable[[nn.Module, Any], Dict[str, torch.Tensor]
             raise ValueError(f"{len(micro_batches)} micro-batches for "
                              f"grad_accum_steps={grad_accum_steps}")
         seconds = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
-        for p in params:
-            p.grad = None
+        opt.zero_grad()
         aux = None
         for mb in micro_batches:
             sync()
@@ -66,6 +69,7 @@ def build_train_step(loss_fn: Callable[[nn.Module, Any], Dict[str, torch.Tensor]
             sync()
             t1 = time.perf_counter()
             out["loss"].backward()
+            opt.accumulate()
             sync()
             seconds["forward"] += t1 - t0
             seconds["backward"] += time.perf_counter() - t1
@@ -73,12 +77,11 @@ def build_train_step(loss_fn: Callable[[nn.Module, Any], Dict[str, torch.Tensor]
         t0 = time.perf_counter()
         if grad_accum_steps > 1:
             with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.div_(grad_accum_steps)
+                for g in opt.grads().values():
+                    if g is not None:
+                        g.div_(grad_accum_steps)
         aux.update(opt.step())
-        for p in params:
-            p.grad = None
+        opt.zero_grad()
         sync()
         seconds["optimizer"] = time.perf_counter() - t0
         step.seconds = seconds

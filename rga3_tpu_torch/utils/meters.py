@@ -1,12 +1,53 @@
-"""Segmentation IoU counts, counterpart of `intersection_and_union` and
-`giou_ciou` in `rga3_tpu/utils/meters.py` (gIoU: the mean per-sample IoU of
-the foreground class; cIoU: cumulative intersection over cumulative
-union)."""
+"""Training meters and segmentation IoU counts, counterpart of
+`rga3_tpu/utils/meters.py` on one process: `AverageMeter` / `ProgressMeter`
+(the train loop's running losses), `intersection_and_union` and `giou_ciou`
+(gIoU: the mean per-sample IoU of the foreground class; cIoU: cumulative
+intersection over cumulative union). The JAX package's cross-host
+`AverageMeter.all_reduce` is not ported."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
+
+
+class AverageMeter:
+    """The last value and the running mean of a scalar."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0.0
+        self.avg = 0.0
+
+    def update(self, val: float, n: int = 1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1e-8)
+
+    def __str__(self):
+        return f"{self.name} {self.val:.4f} ({self.avg:.4f})"
+
+
+class ProgressMeter:
+    """One printed line: `<prefix>[batch/num_batches]` and each meter."""
+
+    def __init__(self, num_batches: int, meters: List[AverageMeter], prefix: str = ""):
+        self.num_batches = num_batches
+        self.meters = meters
+        self.prefix = prefix
+
+    def display(self, batch: int) -> str:
+        entries = [f"{self.prefix}[{batch}/{self.num_batches}]"]
+        entries += [str(m) for m in self.meters]
+        line = "  ".join(entries)
+        print(line, flush=True)
+        return line
 
 
 def intersection_and_union(pred: np.ndarray, target: np.ndarray, num_classes: int = 2,

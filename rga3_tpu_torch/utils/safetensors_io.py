@@ -36,13 +36,23 @@ _FROM_NUMPY = {np.dtype(n): name for name, (n, _) in DTYPES.items() if name != "
 Array = Union[np.ndarray, torch.Tensor]
 
 
-def read_header(path: str) -> Tuple[Dict[str, dict], int]:
-    """(the tensors' entries by name, the byte offset of the data)."""
+def _read_raw_header(path: str) -> Tuple[dict, int]:
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-    header.pop("__metadata__", None)
     return header, 8 + n
+
+
+def read_header(path: str) -> Tuple[Dict[str, dict], int]:
+    """(the tensors' entries by name, the byte offset of the data)."""
+    header, start = _read_raw_header(path)
+    header.pop("__metadata__", None)
+    return header, start
+
+
+def read_metadata(path: str) -> Dict[str, str]:
+    """The file's `__metadata__` (string to string), or {}."""
+    return _read_raw_header(path)[0].get("__metadata__", {})
 
 
 def iter_file(path: str, framework: str = "pt") -> Iterator[Tuple[str, Array]]:
@@ -70,34 +80,46 @@ def load_file(path: str, framework: str = "pt") -> Dict[str, Array]:
     return dict(iter_file(path, framework))
 
 
-def _raw(name: str, x: Array) -> Tuple[str, np.ndarray]:
-    """(safetensors dtype, contiguous little-endian numpy view of the bytes)."""
+def _entry(name: str, x: Array) -> Tuple[str, list, int]:
+    """(safetensors dtype, shape, bytes) of a tensor or array, without
+    copying it."""
     if isinstance(x, torch.Tensor):
         if x.dtype not in _FROM_TORCH:
             raise ValueError(f"{name}: unsupported dtype {x.dtype}")
-        dt = _FROM_TORCH[x.dtype]
-        x = x.detach().cpu().contiguous()
-        arr = (x.view(torch.uint16) if dt == "BF16" else x).numpy()
-        return dt, arr
-    arr = np.asarray(x, order="C")  # ascontiguousarray would make a 0-d array 1-d
+        return _FROM_TORCH[x.dtype], list(x.shape), x.numel() * x.element_size()
+    arr = np.asarray(x)
     if arr.dtype not in _FROM_NUMPY:
         raise ValueError(f"{name}: unsupported dtype {arr.dtype}")
-    return _FROM_NUMPY[arr.dtype], arr.astype(arr.dtype.newbyteorder("<"), copy=False)
+    return _FROM_NUMPY[arr.dtype], list(arr.shape), arr.nbytes
 
 
-def save_file(tensors: Mapping[str, Array], path: str) -> None:
+def _raw(x: Array) -> np.ndarray:
+    """A contiguous little-endian numpy view of the bytes (a tensor is
+    copied to the host)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        return (x.view(torch.uint16) if x.dtype == torch.bfloat16 else x).numpy()
+    arr = np.asarray(x, order="C")  # ascontiguousarray would make a 0-d array 1-d
+    return arr.astype(arr.dtype.newbyteorder("<"), copy=False)
+
+
+def save_file(tensors: Mapping[str, Array], path: str,
+              metadata: Mapping[str, str] = None) -> int:
     """Write `tensors` (numpy arrays or torch tensors) in name order, as the
-    safetensors package does; the header is padded with spaces to a
-    multiple of 8 bytes."""
+    safetensors package does, with an optional `__metadata__`; the header
+    is padded with spaces to a multiple of 8 bytes. The file is written
+    under a temporary name, one tensor at a time (a tensor on the card is
+    copied to the host when its turn comes), and renamed into place, so an
+    interrupted write leaves any earlier file whole. Returns the bytes
+    written."""
     header: Dict[str, dict] = {}
-    blobs = []
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     offset = 0
-    for name in sorted(tensors):
-        dt, arr = _raw(name, tensors[name])
-        n = arr.nbytes
-        header[name] = {"dtype": dt, "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + n]}
-        blobs.append(arr)
+    names = sorted(tensors)
+    for name in names:
+        dt, shape, n = _entry(name, tensors[name])
+        header[name] = {"dtype": dt, "shape": shape, "data_offsets": [offset, offset + n]}
         offset += n
     text = json.dumps(header, separators=(",", ":")).encode()
     text += b" " * (-len(text) % 8)
@@ -105,6 +127,7 @@ def save_file(tensors: Mapping[str, Array], path: str) -> None:
     with open(tmp, "wb") as f:
         f.write(struct.pack("<Q", len(text)))
         f.write(text)
-        for arr in blobs:
-            f.write(arr.reshape(-1).view(np.uint8).data)
+        for name in names:
+            f.write(_raw(tensors[name]).reshape(-1).view(np.uint8).data)
     os.replace(tmp, path)
+    return 8 + len(text) + offset

@@ -12,7 +12,7 @@ samples with [SEG] answers, a padded vision token budget, uint8 SAM frames,
   trace within 1e-5, the trainable parameters within a few learning rates of
   JAX's (Adam moves an element whose gradient is rounding noise by up to
   +-lr a step, whichever way the noise falls), the frozen ones bit-identical;
-* `remat="full"` gives the gradients of `remat="none"`.
+* `remat="full"` and `remat="dots"` give the gradients of `remat="none"`.
 """
 import dataclasses
 
@@ -219,16 +219,17 @@ def test_train_steps_match_jax(setup, accum):
 def test_remat_full_gives_the_gradients_of_none(setup):
     _, _, cfg, sd, full, _ = setup
     grads = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         tm = _port_model(cfg, sd, remat=remat)
         topt.trainable_mask(tm)
         _port_loss(tm, full)["loss"].backward()
         grads[remat] = _trainable_grads(tm)
-    for name, g in grads["none"].items():
-        if g is None:
-            assert grads["full"][name] is None, name
-            continue
-        tol = 1e-6 * g.abs().max().item()
-        assert torch.allclose(grads["full"][name], g, rtol=0, atol=tol), name
-    with pytest.raises(NotImplementedError):
-        UniGR(cfg, device="cpu", remat="dots")
+    for remat in ("full", "dots"):
+        for name, g in grads["none"].items():
+            if g is None:
+                assert grads[remat][name] is None, (remat, name)
+                continue
+            tol = 1e-6 * g.abs().max().item()
+            assert torch.allclose(grads[remat][name], g, rtol=0, atol=tol), (remat, name)
+    with pytest.raises(ValueError):
+        UniGR(cfg, device="cpu", remat="everything")
