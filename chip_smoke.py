@@ -108,7 +108,8 @@ Phases, each timed on its own line:
      configuration (`configs/release_7b.json`: Qwen2.5-VL-7B with LoRA r 128
      + SAM2 Hiera-L at 1024^2, 8 MLLM / 4 SAM frames, micro-batch 2, grad
      accum 8, the ten-dataset mixture at its rates, remat "dots", f32
-     masters) on a model it builds itself (`--model_dir dummy`: the JAX
+     masters, the SAM2 mask decoder and text_hidden_fcs held and computed
+     in f32 as JAX's f32 parameters make them) on a model it builds itself (`--model_dir dummy`: the JAX
      script's crc32-seeded draws), over a synthetic tree in every published
      layout under build/train_cli/ (`write_train_tree` at TRAIN_CLI_SIZES:
      COCO-size stills, 720p frame folders, an 8-second 480x854 mp4 written
@@ -128,7 +129,24 @@ Phases, each timed on its own line:
      accumulation batch and the step's wait on the loader, val seconds and
      gIoU / cIoU, checkpoint seconds and bytes, peak memory, "dots" against
      "none" on one micro-batch (peak memory, seconds), the busy share of a
-     warm step;
+     warm step and its model FLOPs and MFU (`utils.flops`,
+     `utils.profiling`); then run 2's trained state exported by
+     `train.export.export_hf_safetensors` into build/export/ (LoRA merged,
+     f32, HF names; seconds, GB, the free disk and host RAM before) and
+     read back on the host by `load_unigr_state_dict`, bit-equal to the
+     merged state in the process;
+  6c. hand-off: `data/polygon.py` against this machine's OpenCV on 6,000
+     random polygons (the count that differ logged); the export quantized
+     by `python -m rga3_tpu_torch.tools.quantize_checkpoint --bits 4` on the
+     card into build/export_q4/ (seconds, GB); the server's service built
+     by `build_service --model_dir build/export_q4` (the run's dummy word
+     tokenizer: the card has no transformers), every tensor bit-equal to an
+     in-process `quantize_for_serving(..., "int4")` of the export reloaded;
+     one /api/qa and one /api/segment over localhost, each a path counted
+     from its cold call (int4_matmul 197 launches a forward, the Hiera
+     wrappers as Hiera-L's blocks say), the answer equal to `UniGRChat.answer`
+     and the RLEs to `segment_video` of the in-process model; both
+     directories deleted;
   7. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the paths
      made (shapes, strides, options, segment ids: the flash forward at
@@ -163,6 +181,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2468,6 +2487,7 @@ def train_cli_phase(seed: int, card_line: str, read_path) -> dict:
     from rga3_tpu_torch.train import __main__ as cli
     from rga3_tpu_torch.train import checkpoints
     from rga3_tpu_torch.train.optimizer import lr_schedule
+    from rga3_tpu_torch.utils.profiling import mfu, peak_flops_per_chip
 
     work = os.path.join(HERE, "build", "train_cli")
     shutil.rmtree(work, ignore_errors=True)
@@ -2640,6 +2660,14 @@ def train_cli_phase(seed: int, card_line: str, read_path) -> dict:
     log(f"profile (train cli step, {accum} micro-batches): device busy in the traced step / "
         f"wall of the untraced warm step: {busy:.1f} / {warm * 1e3:.1f} ms = "
         f"{busy / (warm * 1e3):.3f}")
+    flops = cli.step_flops(cfg, mbs)
+    log(f"train cli: warm step {flops / 1e12:.3f} TFLOP of model FLOPs "
+        f"(unigr_train_step_flops over its {accum} micro-batches) in {warm:.3f} s: "
+        f"{flops / warm / 1e12:.1f} TFLOP/s, MFU {mfu(flops, warm):.4f} of the "
+        f"{peak_flops_per_chip() / 1e12:.0f} TFLOP/s bf16 peak; {card_line}")
+    # the checkpoints were read back above: their disk goes to the export
+    shutil.rmtree(ckpt)
+    export_run(state, card_line)
     del run2, state, mbs, lm, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2679,6 +2707,227 @@ def device_breakdown(run, top: int = 20, host: bool = True) -> float:
             log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
     log(f"profile: {time.perf_counter() - t0:.2f} s with the trace's aggregation")
     return busy_ms
+
+
+def export_run(state, card_line: str) -> None:
+    """Phase 6b's end: its trained state exported into build/export/ and
+    read back on the host, bit-equal to the merged f32 state."""
+    import torch
+    from rga3_tpu_torch.models.qwen25vl.loader import load_unigr_state_dict
+    from rga3_tpu_torch.train import export
+
+    out = os.path.join(HERE, "build", "export")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    log(f"export: free disk {shutil.disk_usage(out).free / 1e9:.1f} GB, available host RAM "
+        f"{host_available() / 1e9:.1f} GB before the write")
+    t0 = time.perf_counter()
+    n = export.export_hf_safetensors(state, out)
+    sec = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(out, export.EXPORT_FILE))
+    log(f"export: export_hf_safetensors {n} tensors, {size / 1e9:.3f} GB in {sec:.2f} s "
+        f"({size / 1e9 / sec:.2f} GB/s); {card_line}")
+    t0 = time.perf_counter()
+    got = load_unigr_state_dict(out)
+    sec = time.perf_counter() - t0
+    want = export.merged_state_dict(state)
+    differ = [k for k, v in want.items()
+              if k not in got or not torch.equal(got[k].to(v.device), v.float())]
+    log(f"export: read back by load_unigr_state_dict in {sec:.2f} s, {len(got)} tensors; "
+        f"{len(differ)} differ from the merged f32 state; LoRA merged into "
+        f"{sum(k.endswith(('q_proj.weight', 'v_proj.weight')) for k in want)} q/v weights")
+    if differ or set(got) != set(want) or len(got) != n:
+        raise AssertionError(f"export: the reloaded state differs: {differ[:5]}")
+
+
+def host_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def polygon_check(seed: int) -> None:
+    """F6: `data/polygon.py` against this machine's OpenCV on 6,000 random
+    polygons (2,000 canvases, 3 shapes each, filled and outlined)."""
+    import numpy as np
+    from rga3_tpu_torch.data import polygon
+
+    try:
+        import cv2
+    except ImportError:
+        log("polygons: no OpenCV on this machine")
+        return
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    differ = {"fill_poly": 0, "polylines": 0}
+    n = 0
+    for _ in range(2000):
+        h, w = int(rng.integers(1, 160)), int(rng.integers(1, 200))
+        for _ in range(3):
+            k = int(rng.integers(1, 30))
+            pts = [(rng.uniform(-0.3, 1.3, (k, 2)) * [w, h]).astype(np.int32)]
+            for name, ref in (("fill_poly", cv2.fillPoly),
+                              ("polylines", lambda im, p, v: cv2.polylines(im, p, True, v, 1))):
+                a, b = np.zeros((h, w), np.uint8), np.zeros((h, w), np.uint8)
+                getattr(polygon, name)(a, pts, 1)
+                ref(b, pts, 1)
+                differ[name] += not np.array_equal(a, b)
+            n += 1
+    log(f"polygons: data/polygon.py against OpenCV {cv2.__version__} on {n} random polygons: "
+        f"{differ} differ ({time.perf_counter() - t0:.2f} s)")
+
+
+def handoff_phase(frames, card_line: str, read_path) -> dict:
+    """Phase 6c (see the module docstring): phase 6b's export quantized by
+    the CLI and served. Returns the served requests' paths."""
+    import gc
+
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.data.processor import QwenVLProcessor
+    from rga3_tpu_torch.evaluation.segmentor import UniGRChat, UniGRSegmentor
+    from rga3_tpu_torch.models.qwen25vl.loader import load_unigr_state_dict
+    from rga3_tpu_torch.models.unigr import build as unigr_build
+    from rga3_tpu_torch.models.unigr.model import UniGR
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.ops.quant import quantize_for_serving
+    from rga3_tpu_torch.serve.__main__ import build_service, parse_args
+    from rga3_tpu_torch.serve.app import serve
+    from rga3_tpu_torch.tools import quantize_checkpoint as qc
+    from rga3_tpu_torch.utils import rle
+
+    src = os.path.join(HERE, "build", "export")
+    q4 = os.path.join(HERE, "build", "export_q4")
+    shutil.rmtree(q4, ignore_errors=True)
+    paths = {}
+    proc = QwenVLProcessor.from_pretrained("dummy")
+    # the quantize CLI on the card
+    t0 = time.perf_counter()
+    qc.main(["--model_dir", src, "--out", q4, "--bits", "4"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(q4, f)) for f in os.listdir(q4))
+    log(f"handoff: quantize_checkpoint --bits 4 on the card {size / 1e9:.3f} GB in {sec:.2f} s; "
+        f"{card_line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the server's service from the quantized directory
+    real = unigr_build._processor_dir
+    unigr_build._processor_dir = lambda args, prequantized: "dummy"
+    try:
+        t0 = time.perf_counter()
+        service = build_service(parse_args(["--model_dir", q4, "--model_size", TRAIN_CLI_MODEL,
+                                            "--max_new_tokens", str(SERVE_TOKENS)]),
+                                load_video=npy_video_loader)
+        torch.cuda.synchronize()
+    finally:
+        unigr_build._processor_dir = real
+    served = service.segmentor.model
+    log(f"handoff: build_service --model_dir {os.path.relpath(q4, HERE)} in "
+        f"{time.perf_counter() - t0:.2f} s; memory_allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # the in-process reference: the export reloaded, quantized on the card,
+    # its float tensors in the served model's dtype
+    t0 = time.perf_counter()
+    sd = load_unigr_state_dict(src)
+    ref32 = qc.model_for(sd, "unigr", "cuda")
+    ref32.load_state_dict(sd, strict=True)
+    del sd
+    quantize_for_serving(ref32.qwen, "int4")
+    qcfg = ref32.cfg.qwen
+    ref = UniGR(ref32.cfg.replace(
+        qwen=qcfg.replace(text=qcfg.text.replace(quant_int4=True),
+                          vision=qcfg.vision.replace(quant_int8=True)),
+        seg=ref32.cfg.seg.replace(seg_token_id=proc.seg_token_id)),
+        device="cuda", dtype=served.dtype)
+    ref.load_state_dict(ref32.state_dict(), strict=True)
+    ref.eval()
+    del ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"handoff: in-process reference (export reloaded, quantize_for_serving int4, "
+        f"{served.dtype} floats) in {time.perf_counter() - t0:.2f} s")
+
+    sd, want = served.state_dict(), ref.state_dict()
+    differ = [k for k in want if k not in sd or sd[k].dtype != want[k].dtype
+              or not torch.equal(sd[k], want[k])]
+    log(f"handoff: the served model's {len(want)} tensors against the in-process model's: "
+        f"{len(differ)} differ")
+    if differ or set(sd) != set(want):
+        raise AssertionError(f"handoff: the served model differs: {differ[:5]}")
+    del sd, want
+    shutil.rmtree(src)
+
+    upload = {"video": ("frames.npy", npy_bytes(np.stack(frames)))}
+    qa_frames = sample_frames(frames, service.max_qa_frames)[0]
+    question, expression = "What is happening in this video?", "the person on the left"
+    per_forward = 7 * served.cfg.qwen.text.num_hidden_layers + 1
+    httpd = serve(service, port=0, background=True, host="127.0.0.1")
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        answer = post_multipart(url + "/api/qa", {"question": question}, upload)["answer"]
+        wall = time.perf_counter() - t0
+        paths["handoff_qa"] = read_path()
+        launched = paths["handoff_qa"][0]
+        forwards = service.chat.last_stats["forwards"]
+        t0 = time.perf_counter()
+        direct = UniGRChat(ref, proc, max_new_tokens=SERVE_TOKENS).answer(
+            question, video_frames=qa_frames)
+        log(f"handoff qa: HTTP {wall:.3f} s (cold), in-process {time.perf_counter() - t0:.3f} s; "
+            f"answer of {len(answer.split())} words, equal {answer == direct}; int4_matmul "
+            f"{launched['int4_matmul']} = {per_forward} x {forwards} forwards; launches "
+            f"{ {k: n for k, n in launched.items() if n} }; {card_line}")
+        if answer != direct:
+            raise AssertionError("handoff qa: the served answer is not the in-process one")
+        if (launched["int4_matmul"] != per_forward * forwards
+                or launched["flash_attention"] <= 0):
+            raise AssertionError(f"handoff qa: int4_matmul {launched['int4_matmul']} for "
+                                 f"{forwards} forwards, flash {launched['flash_attention']}")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        out = post_multipart(url + "/api/segment", {"expression": expression}, upload)
+        wall = time.perf_counter() - t0
+        paths["handoff_segment"] = read_path()
+        launched = paths["handoff_segment"][0]
+        t0 = time.perf_counter()
+        masks = UniGRSegmentor(ref, proc, num_frames_mllm=8).segment_video(frames, expression)
+        got = np.stack([rle.decode(m) for m in out["masks"]]).astype(bool)
+        same = got.shape == masks.shape and np.array_equal(got, masks)
+        log(f"handoff segment: HTTP {wall:.3f} s (cold), in-process "
+            f"{time.perf_counter() - t0:.3f} s; {out['num_frames']} frames, foreground "
+            f"{got.mean():.4f}, RLEs equal {same}; launches "
+            f"{ {k: n for k, n in launched.items() if n} }; {card_line}")
+        if not same:
+            raise AssertionError("handoff segment: the RLE masks differ from segment_video's")
+        # one teacher-forced forward, without the head (the [SEG] gather
+        # reads the hidden states)
+        if launched["int4_matmul"] != per_forward - 1:
+            raise AssertionError(f"handoff segment: int4_matmul {launched['int4_matmul']}, "
+                                 f"expected one headless forward's {per_forward - 1}")
+        for k, n in HIERA_L_LAUNCHES.items():
+            if launched[k] != n:
+                raise AssertionError(f"handoff segment: {k}: {launched[k]} launches, "
+                                     f"Hiera-L's blocks make {n}")
+        missing = [k for k in SEGMENT_KERNELS if launched[k] <= 0]
+        if missing:
+            raise AssertionError(f"handoff segment: {missing} not launched")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"handoff: max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{card_line}")
+    del service, served, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(q4)
+    return paths
 
 
 # --------------------------------------------------------------------------
@@ -2955,6 +3204,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths.update(train_cli_phase(seed, card_line, read_path))
     log(f"phase train_cli: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 6c. hand-off: the polygons against OpenCV, then 6b's export
+    # quantized by the CLI and served
+    t0 = time.perf_counter()
+    polygon_check(seed)
+    paths.update(handoff_phase(frames, card_line, read_path))
+    log(f"phase handoff: {time.perf_counter() - t0:.2f} s")
 
     # ---- 7. each kernel against its plain version, at every call the paths
     # made (shapes, strides, masks and segment ids as recorded); a call's

@@ -118,6 +118,34 @@ def map_hf_key(key: str) -> Optional[str]:
     return None
 
 
+_VISION_BLOCK_HF = {port: hf for hf, port in VISION_BLOCK_KEYS.items()}
+
+
+def hf_key(port_key: str) -> Optional[str]:
+    """The port's `Qwen25VL` state-dict key -> its HF weight name (the
+    inverse of `map_hf_key`, in the names `export_hf_safetensors` writes), or
+    None for a key HF has no name for."""
+    if port_key == "visual.patch_embed.weight":
+        return "visual.patch_embed.proj.weight"
+    m = re.match(r"visual\.blocks_(\d+)\.(.+)$", port_key)
+    if m:
+        rest = _VISION_BLOCK_HF.get(m.group(2))
+        return None if rest is None else f"visual.blocks.{m.group(1)}.{rest}"
+    if port_key == "visual.merger_ln_q.weight":
+        return "visual.merger.ln_q.weight"
+    m = re.match(r"visual\.merger_fc([12])\.(weight|bias)$", port_key)
+    if m:
+        return f"visual.merger.mlp.{0 if m.group(1) == '1' else 2}.{m.group(2)}"
+    fixed = {"lm.embed_tokens.weight": "model.embed_tokens.weight",
+             "lm.lm_head.weight": "lm_head.weight", "lm.model.norm.weight": "model.norm.weight"}
+    if port_key in fixed:
+        return fixed[port_key]
+    m = re.match(r"lm\.model\.layers_(\d+)\.(.+)$", port_key)
+    if m and m.group(2) in DECODER_LAYER_KEYS:
+        return f"model.layers.{m.group(1)}.{m.group(2)}"
+    return None
+
+
 def _qwen_tensor(port_key: str, val: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if port_key == "visual.patch_embed.weight":
         val = val.reshape(val.shape[0], -1)  # Conv3d (O, I, T, H, W) -> Linear (O, I*T*H*W)

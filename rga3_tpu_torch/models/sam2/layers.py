@@ -16,8 +16,12 @@ from ...ops.attention import flash_attention, mha_reference
 
 def attend(q, k, v, *, plain: bool = False, min_flash_len: int = 1024):
     """(B, L, H, D) attention: the flash kernel for lq >= min_flash_len,
-    else (or with `plain`) the plain version."""
+    else (or with `plain`) the plain version. The kernel is bf16: an f32
+    caller (the mask decoder trained under f32 masters) attends through
+    bf16 copies of q, k and v, and gets the output back in its dtype."""
     if q.shape[1] >= min_flash_len and not plain:
+        if q.dtype != torch.bfloat16:
+            return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16()).to(q.dtype)
         return flash_attention(q, k, v)
     return mha_reference(q, k, v)
 
@@ -60,14 +64,9 @@ class MLP(nn.Module):
             d_out = output_dim if i == num_layers - 1 else hidden_dim
             setattr(self, f"layers_{i}", nn.Linear(d_in, d_out, **factory))
 
-    def forward(self, x, dtype: torch.dtype = None):
-        """`dtype`: compute in it (input and weights cast), else as stored."""
-        if dtype is not None:
-            x = x.to(dtype)
+    def forward(self, x):
         for i in range(self.num_layers):
-            layer = getattr(self, f"layers_{i}")
-            x = (layer(x) if dtype is None
-                 else F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype)))
+            x = getattr(self, f"layers_{i}")(x)
             if i < self.num_layers - 1:
                 x = self.act(x)
         return torch.sigmoid(x) if self.sigmoid_output else x

@@ -9,6 +9,8 @@ where `{i}` stands for a layer index and `{p}` for `weight` or `bias`; the
 transform is None for every row (a row may name a function of the tensor).
 Reference names no row matches are skipped, as the JAX loader skips them;
 `load_state_dict(strict=True)` then names any parameter left out.
+`reference_state_dict` is the inverse: the port's names back to the
+reference's, as an export writes them.
 """
 from __future__ import annotations
 
@@ -107,6 +109,7 @@ def _pattern(template: str) -> "re.Pattern":
 
 
 _COMPILED = tuple((_pattern(ref), port, fn) for ref, port, fn in SAM2_KEY_TABLE)
+_INVERSE = tuple((_pattern(port), ref, fn) for ref, port, fn in SAM2_KEY_TABLE)
 
 
 def map_sam2_key(ref_key: str) -> Optional[Tuple[str, Optional[Callable]]]:
@@ -117,6 +120,22 @@ def map_sam2_key(ref_key: str) -> Optional[Tuple[str, Optional[Callable]]]:
         if m:
             return port.format(**m.groupdict()), fn
     return None
+
+
+def reference_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's `Sam2Model` state dict under the reference's names: the
+    inverse of `convert_sam2_checkpoint` through `SAM2_KEY_TABLE`, with
+    `.g_weight` written as `.gamma`. Raises ValueError for a name that no
+    row, or more than one, maps back, or whose row has a transform."""
+    out = {}
+    for key, val in sd.items():
+        hits = [(ref.format(**m.groupdict()), fn) for rx, ref, fn in _INVERSE
+                if (m := rx.match(key))]
+        if len(hits) != 1 or hits[0][1] is not None:
+            raise ValueError(f"{key}: no single transform-free SAM2_KEY_TABLE row maps it "
+                             f"back ({[ref for ref, _ in hits]})")
+        out[hits[0][0].replace(".g_weight", ".gamma")] = val
+    return out
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

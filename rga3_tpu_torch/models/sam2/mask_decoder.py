@@ -69,16 +69,14 @@ class TwoWayTransformer(nn.Module):
 
 
 class MaskDecoder(nn.Module):
-    """`iou_dtype` is the dtype the IoU head computes in (None: the
-    model's). The training entry point sets float32 under f32 masters: the
-    JAX package's f32 parameters promote that head to f32, and the best mask
-    is an argmax over its outputs, which bf16 rounding can tie (a random
-    network predicts 0.5 +- 2e-5 for every mask, all 0.5 in bf16)."""
+    """Computes in its parameters' dtype, its inputs cast to it: the model's
+    dtype, or float32 when the training entry point holds the decoder in
+    f32 under f32 masters (the JAX package's f32 parameters promote the
+    decoder's bf16 inputs to f32)."""
 
     def __init__(self, cfg: Sam2Config, **factory):
         super().__init__()
         self.cfg = cfg
-        self.iou_dtype = None
         d = cfg.d_model
         self.num_mask_tokens = cfg.num_multimask_outputs + 1
         self.iou_token = nn.Embedding(1, d, **factory)
@@ -104,8 +102,16 @@ class MaskDecoder(nn.Module):
     def _nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
         return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.iou_token.weight.dtype
+
     def predict(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
                 high_res_features):
+        dt = self.dtype
+        image_embeddings, sparse_prompt, dense_prompt = (
+            t.to(dt) for t in (image_embeddings, sparse_prompt, dense_prompt))
+        high_res_features = [t.to(dt) for t in high_res_features]
         b = sparse_prompt.shape[0]
         output_tokens = torch.cat([
             self.obj_score_token.weight, self.iou_token.weight,
@@ -132,7 +138,7 @@ class MaskDecoder(nn.Module):
             for i in range(self.num_mask_tokens)
         ], dim=1)  # (B, M, C/8)
         masks = torch.einsum("bmc,bhwc->bmhw", hyper.float(), up.float())
-        iou_pred = self.iou_prediction_head(iou_token_out, self.iou_dtype)
+        iou_pred = self.iou_prediction_head(iou_token_out)
         object_score_logits = self.pred_obj_score_head(hs[:, 0])
         return masks, iou_pred, mask_tokens_out, object_score_logits
 

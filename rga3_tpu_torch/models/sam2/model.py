@@ -60,8 +60,9 @@ class Sam2Model(nn.Module):
         else:
             out = self.image_encoder(x)
         fpn = list(out["backbone_fpn"])
-        fpn[0] = conv1x1(self.sam_mask_decoder.conv_s0, fpn[0])
-        fpn[1] = conv1x1(self.sam_mask_decoder.conv_s1, fpn[1])
+        dt = self.sam_mask_decoder.dtype
+        fpn[0] = conv1x1(self.sam_mask_decoder.conv_s0, fpn[0].to(dt))
+        fpn[1] = conv1x1(self.sam_mask_decoder.conv_s1, fpn[1].to(dt))
         return {"backbone_fpn": fpn, "vision_pos_enc": out["vision_pos_enc"]}
 
     def forward_sam_heads(self, backbone_features, high_res_features,
@@ -75,13 +76,14 @@ class Sam2Model(nn.Module):
         cfg = self.cfg
         b = backbone_features.shape[0]
         sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, batch=b)
-        sparse = sparse.to(self.dtype)
+        dt = self.sam_mask_decoder.dtype
+        sparse = sparse.to(dt)
         if language_embd is not None:
-            sparse = torch.cat([sparse, language_embd.to(self.dtype)], dim=1)
+            sparse = torch.cat([sparse, language_embd.to(dt)], dim=1)
         image_pe = self.sam_prompt_encoder.dense_pe()
         low_res_multimasks, ious, sam_tokens_out, object_score_logits = (
             self.sam_mask_decoder(
-                backbone_features, image_pe, sparse, dense.to(self.dtype),
+                backbone_features, image_pe, sparse, dense,
                 high_res_features, multimask_output=multimask_output,
                 training=training,
             )
@@ -101,7 +103,7 @@ class Sam2Model(nn.Module):
         high_res_masks = resize_bilinear(
             low_res_masks, (cfg.image_size, cfg.image_size)
         )
-        obj_ptr = self.obj_ptr_proj(sam_output_token)
+        obj_ptr = self.obj_ptr_proj(sam_output_token.to(self.dtype))
         appearing = (object_score_logits > 0).to(obj_ptr.dtype)
         obj_ptr = appearing * obj_ptr + (1.0 - appearing) * self.no_obj_ptr
         return {

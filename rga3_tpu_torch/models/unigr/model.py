@@ -35,7 +35,9 @@ class UniGRConfig(ConfigBase):
 
 
 class SegProjection(nn.Module):
-    """text_hidden_fcs: Linear(H, H) -> ReLU -> Linear(H, out_dim)."""
+    """text_hidden_fcs: Linear(H, H) -> ReLU -> Linear(H, out_dim), in its
+    parameters' dtype (float32 when the training entry point holds it in
+    f32 under f32 masters, as the JAX package's f32 parameters promote it)."""
 
     def __init__(self, in_dim: int, out_dim: int, **factory):
         super().__init__()
@@ -43,7 +45,7 @@ class SegProjection(nn.Module):
         self.fc2 = nn.Linear(in_dim, out_dim, **factory)
 
     def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(x)))
+        return self.fc2(torch.relu(self.fc1(x.to(self.fc1.weight.dtype))))
 
 
 class UniGR(nn.Module):

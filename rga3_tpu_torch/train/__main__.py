@@ -9,7 +9,8 @@ in index order; `--grad_accum_steps` micro-batches of `--micro_batch_size`
 samples per step, padded across micro-batches to one length; masked AdamW
 with warmup then cosine (`train.optimizer`), with f32 masters of the
 trainable tensors under `--param_dtype float32` (the model computes in
-bf16, the mask decoder's IoU head in f32 as JAX's f32 parameters make it);
+bf16, except the SAM2 mask decoder and `text_hidden_fcs`, which are held
+and computed in f32 there, as JAX's f32 parameters promote them);
 the LM's activations under `--remat` ("dots" keeps the weight
 products' outputs); a ReasonSeg-val gIoU / cIoU after each epoch;
 checkpoints with auto-resume (`train.checkpoints`). `--config` is a JSON
@@ -22,8 +23,12 @@ decoder layers (scan), which renames their paths; the port does not scan,
 so at those sizes it draws each layer from its per-layer path
 (`qwen/lm/model/layers_<i>/...`), the tiny config's layout.
 
-The mesh and multi-host flags of the JAX script are not ported, nor is
-`--profile_dir` (it raises).
+Each step logs its model FLOPs (`utils.flops.unigr_train_step_flops`
+over its micro-batches) and, on the card, its MFU against the card's bf16
+peak (`utils.profiling`). `--profile_dir` records a torch.profiler trace of
+the run there (`utils.profiling.trace`); the JAX script parses the flag and
+never reads it. The mesh and multi-host flags of the JAX script are not
+ported.
 """
 from __future__ import annotations
 
@@ -51,7 +56,9 @@ from ..models.sam2.config import Sam2Config, tiny_sam2_config
 from ..models.sam2.loader import load_sam2_state_dict
 from ..models.unigr.build import QWEN_SIZES, qwen_config
 from ..models.unigr.model import UniGR, UniGRConfig
+from ..utils.flops import unigr_train_step_flops
 from ..utils.meters import AverageMeter, ProgressMeter
+from ..utils.profiling import annotate, mfu, trace
 from .checkpoints import CheckpointManager
 from .optimizer import DEFAULT_TRAINABLE_PATTERNS
 from .step import build_train_step, make_train_state
@@ -149,7 +156,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--data_workers", type=int, default=2,
                    help="prefetch threads (0 = synchronous); batches are the same either way")
-    p.add_argument("--profile_dir", default=None, help="not ported: raises")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the run's steps here")
     p.add_argument("--no_eval", action="store_true",
                    help="skip the per-epoch ReasonSeg-val gIoU/cIoU loop")
     p.add_argument("--val_at_start", action="store_true",
@@ -174,7 +182,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def build(args, device: torch.device, resuming: bool = False):
     """(the UniGR of `args`, bf16, its parameters from `--model_dir` /
     `--sam_pretrained` and `assemble_params`; its processor; under
-    `--param_dtype float32` the f32 draws of the trainable tensors).
+    `--param_dtype float32` the f32 draws of the trainable tensors, and the
+    SAM2 mask decoder and `text_hidden_fcs` held in f32).
     `resuming`: the trainable tensors are not drawn (the checkpoint holds
     them)."""
     proc = QwenVLProcessor.from_pretrained(args.model_dir)
@@ -188,8 +197,10 @@ def build(args, device: torch.device, resuming: bool = False):
         bce_loss_weight=args.bce_loss_weight))
     model = UniGR(cfg, device=device, dtype=torch.bfloat16, remat=args.remat)
     if args.param_dtype == "float32":
-        # the best-IoU mask is chosen as JAX's f32 parameters choose it
-        model.grounding_encoder.sam_mask_decoder.iou_dtype = torch.float32
+        # JAX's f32 parameters promote these modules' bf16 inputs to f32;
+        # cast before the draws, which then land in f32 unrounded
+        model.grounding_encoder.sam_mask_decoder.float()
+        model.text_hidden_fcs.float()
     loaded: Dict[str, torch.Tensor] = {}
     if args.model_dir != "dummy":
         print("loading pretrained weights...", flush=True)
@@ -200,7 +211,7 @@ def build(args, device: torch.device, resuming: bool = False):
             print("no checkpoint found: random-initializing the LLM", flush=True)
     if args.sam_pretrained:
         loaded.update(("grounding_encoder." + k, v) for k, v in
-                      load_sam2_state_dict(args.sam_pretrained, torch.bfloat16).items())
+                      load_sam2_state_dict(args.sam_pretrained).items())
     def trainable(key):
         return any(pat in key for pat in DEFAULT_TRAINABLE_PATTERNS)
 
@@ -295,6 +306,16 @@ def stage(batch: Dict[str, np.ndarray], device: torch.device) -> List[Dict[str, 
     return out
 
 
+def step_flops(cfg, micro_batches: List[Dict[str, Any]]) -> float:
+    """Model FLOPs of one step over `micro_batches` (`stage`'s output)."""
+    total = 0.0
+    for mb in micro_batches:
+        b, seq = mb["input_ids"].shape
+        patches = mb["pixel_patches"].shape[0] if "pixel_patches" in mb else 0
+        total += unigr_train_step_flops(cfg, b, seq, mb["images_sam"].shape[1], patches)
+    return total
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -310,8 +331,6 @@ def main(argv: Optional[Sequence[str]] = None,
     seconds, checkpoint seconds and bytes, and the last step's micro-batches
     (on the device)."""
     args = parse_args(argv)
-    if args.profile_dir:
-        raise NotImplementedError("--profile_dir is not ported")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -394,43 +413,52 @@ def main(argv: Optional[Sequence[str]] = None,
     try:
         if args.val_at_start and not args.no_eval:
             run_val("step0")
-        for epoch in range(start_epoch, args.epochs):
-            meters = {k: AverageMeter(k) for k in METERS}
-            t_epoch = time.perf_counter()
-            for it in range(args.steps_per_epoch):
+        with trace(args.profile_dir, "train"):
+            for epoch in range(start_epoch, args.epochs):
+                meters = {k: AverageMeter(k) for k in METERS}
+                t_epoch = time.perf_counter()
+                for it in range(args.steps_per_epoch):
+                    t0 = time.perf_counter()
+                    batch = next(loader)
+                    wait = time.perf_counter() - t0
+                    micro_batches = stage(batch, device)
+                    t1 = time.perf_counter()
+                    with annotate(f"step {global_step}"):
+                        state, aux = step_fn(state, micro_batches)
+                    aux = {k: float(v) for k, v in aux.items()}
+                    _sync(device)
+                    seconds = time.perf_counter() - t1
+                    flops = step_flops(cfg, micro_batches)
+                    summary["steps"].append({
+                        "batch_idx": global_step, "aux": aux, "seconds": seconds,
+                        "phases": dict(step_fn.seconds), "loader_wait": wait,
+                        "host": make_accum_batch.seconds.get(global_step), "flops": flops,
+                        "mfu": mfu(flops, seconds) if device.type == "cuda" else None,
+                    })
+                    summary["last_micro_batches"] = micro_batches
+                    for k, m in meters.items():
+                        m.update(aux[k])
+                    global_step += 1
+                    if args.loss_log:
+                        loss_trace.append(aux["loss"])
+                    if it % args.log_every == 0:
+                        ProgressMeter(args.steps_per_epoch, list(meters.values()),
+                                      prefix=f"epoch {epoch} ").display(it)
+                        st = summary["steps"][-1]
+                        util = "n/a (CPU)" if st["mfu"] is None else f"{st['mfu']:.4f}"
+                        print(f"step {st['batch_idx']}: {st['flops'] / 1e12:.3f} TFLOP in "
+                              f"{st['seconds']:.3f} s, MFU {util}", flush=True)
+                        if writer:
+                            for k, m in meters.items():
+                                writer.add_scalar(f"train/{k}", m.val, global_step)
+                print(f"epoch {epoch} done in {time.perf_counter() - t_epoch:.0f}s", flush=True)
+                metric = None if args.no_eval else run_val(epoch)
                 t0 = time.perf_counter()
-                batch = next(loader)
-                wait = time.perf_counter() - t0
-                micro_batches = stage(batch, device)
-                t1 = time.perf_counter()
-                state, aux = step_fn(state, micro_batches)
-                aux = {k: float(v) for k, v in aux.items()}
-                _sync(device)
-                summary["steps"].append({
-                    "batch_idx": global_step, "aux": aux, "seconds": time.perf_counter() - t1,
-                    "phases": dict(step_fn.seconds), "loader_wait": wait,
-                    "host": make_accum_batch.seconds.get(global_step),
-                })
-                summary["last_micro_batches"] = micro_batches
-                for k, m in meters.items():
-                    m.update(aux[k])
-                global_step += 1
-                if args.loss_log:
-                    loss_trace.append(aux["loss"])
-                if it % args.log_every == 0:
-                    ProgressMeter(args.steps_per_epoch, list(meters.values()),
-                                  prefix=f"epoch {epoch} ").display(it)
-                    if writer:
-                        for k, m in meters.items():
-                            writer.add_scalar(f"train/{k}", m.val, global_step)
-            print(f"epoch {epoch} done in {time.perf_counter() - t_epoch:.0f}s", flush=True)
-            metric = None if args.no_eval else run_val(epoch)
-            t0 = time.perf_counter()
-            is_best = ckpt.save_epoch(state, epoch, metric=metric)
-            summary["save"].append((time.perf_counter() - t0,
-                                    os.path.getsize(ckpt._file("latest"))))
-            if is_best:
-                print(f"epoch {epoch}: new best", flush=True)
+                is_best = ckpt.save_epoch(state, epoch, metric=metric)
+                summary["save"].append((time.perf_counter() - t0,
+                                        os.path.getsize(ckpt._file("latest"))))
+                if is_best:
+                    print(f"epoch {epoch}: new best", flush=True)
     finally:
         loader.close()
     if args.loss_log:

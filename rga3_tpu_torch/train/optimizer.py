@@ -18,7 +18,8 @@ arithmetic:
     parameters with bf16 compute), each trainable tensor has an f32 master:
     the gradients are summed over the micro-batches in f32, the moments
     and the update are the f32 parameter's, and the master is written back
-    to the model rounded to bf16. A frozen tensor needs no master: an f32
+    to the model rounded to bf16. A trainable tensor the model already
+    holds in f32 is its own master. A frozen tensor needs no master: an f32
     weight cast to bf16 at each use is the bf16 weight.
 
 The global norm is summed in f32 (optax sums each leaf in its own dtype).
@@ -89,11 +90,13 @@ class MaskedAdamW:
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.count = 0
         # a master starts from `master_init` where given (the values before
-        # rounding to the model's dtype), else from the parameter
+        # rounding to the model's dtype), else from the parameter; a
+        # parameter already in `master_dtype` is its own master
         init = master_init or {}
-        self.master = {n: init.get(n, p.detach()).to(p.device, master_dtype, copy=True)
-                       for n, p in self.params.items()
-                       if master_dtype is not None and p.dtype != master_dtype}
+        self.master = {} if master_dtype is None else {
+            n: (p.detach() if p.dtype == master_dtype
+                else init.get(n, p.detach()).to(p.device, master_dtype, copy=True))
+            for n, p in self.params.items()}
         # f32 sums of the micro-batches' gradients of the tensors with a master
         self.grad_sum: Dict[str, torch.Tensor] = {}
         self.mu = {n: torch.zeros_like(self.value(n), dtype=self.mu_dtype) for n in self.params}
@@ -168,7 +171,7 @@ class MaskedAdamW:
 def build_optimizer(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
                     master_init: Dict[str, torch.Tensor] = None) -> MaskedAdamW:
     """Mark the trainable parameters (`trainable_mask`) and build the masked
-    AdamW over them (with `master_dtype` masters where the parameters'
-    dtype differs, from `master_init` where it has the tensor)."""
+    AdamW over them (with `master_dtype` masters, from `master_init` where
+    it has the tensor; a parameter already in that dtype is its own)."""
     trainable_mask(model)
     return MaskedAdamW(cfg, model, master_dtype, master_init)

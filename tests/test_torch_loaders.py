@@ -9,8 +9,9 @@ configs.
   a `pytorch_model.bin`: the port's state dict bit-equal to
   `torch_state_dict_from_flax` of the JAX tree, and loading strictly.
 * The SAM2 loader against `load_sam2_params` on a `.pt` of reference names
-  made by inverting the port's `SAM2_KEY_TABLE` (the JAX converter raises
-  on any reference name the inverted table lacks).
+  made by `models.sam2.loader.reference_state_dict`, the inverted
+  `SAM2_KEY_TABLE` (the JAX converter raises on any reference name the
+  inverted table lacks).
 * `load_unigr_state_dict` against `load_unigr_params` on a merged UniGR
   directory (Qwen, the [SEG] head, SAM2 under its reference names).
 * `save_quantized` / `load_quantized` both ways (the port writes and JAX
@@ -191,15 +192,7 @@ def test_safetensors_index_shards(tmp_path, tree):
 
 
 def _reference_sam2(port_sd):
-    """The port's SAM2 state dict under the reference's names (the inverted
-    `SAM2_KEY_TABLE`, `.g_weight` written as `.gamma`)."""
-    rows = [(sam_loader._pattern(port), ref) for ref, port, _ in sam_loader.SAM2_KEY_TABLE]
-    out = {}
-    for key, val in port_sd.items():
-        hits = [ref.format(**m.groupdict()) for rx, ref in rows if (m := rx.match(key))]
-        assert len(hits) == 1, (key, hits)
-        out[hits[0].replace(".g_weight", ".gamma")] = val.clone()
-    return out
+    return {k: v.clone() for k, v in sam_loader.reference_state_dict(port_sd).items()}
 
 
 def test_sam2_loader_matches_jax(tmp_path, tree):
