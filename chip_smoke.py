@@ -61,6 +61,26 @@ Phases, each timed on its own line:
      and in bf16 each iteration of the batch's forward against single ones
      (iteration 1 within BATCH_BF16_FACTOR of bf16 against f32 on the card,
      bf16 card against bf16 CPU logged beside);
+  4d. region_qa: the region-QA benchmark CLIs on phase 4's int4 chat
+     (`main(argv, model=...)`), STOM over phase 4b's CoTracker3 written as
+     a weight file under build/region_qa/ and named by RGA3_STOM_TRACKER:
+     `eval_videoinfer` on a VideoInfer tree (REGION_VIDEOS videos x
+     REGION_FRAMES frames at REGION_SIZE, a rectangle and a mask overlay a
+     video, 8 QA) with --use_stom --batch_size 4 in 2 shards (the union the
+     8 ids, a resume that writes nothing), merge, eval (the scores equal to
+     `evaluate_captions` of the merged file); `eval_region_qa --bench
+     videorefer` on 2 items of REFER_FRAMES frames (16 sampled, STOM, 16
+     new tokens) through a recording proxy of the chat, each record's pred
+     the first character of a direct answer of the prompt and frames the
+     driver built, then its eval stage; `--bench vipbench` on 4 images at
+     VIP_SIZE in batches of 2 (the banned ids hold [SEG]'s, none of them
+     generated); each CLI a path of its own (int4_matmul 197 a forward,
+     flash_attention launched); STOM over LK on phase 4b's items (seconds
+     a clip on the host) and on a textured patch shifted by a known step a
+     frame (the rectangle within 1 px); phase 4b's tracker exported to the
+     official checkpoint layout, `torch.save`d and rebuilt by
+     `build_cotracker3_from_checkpoint` (config equal to `stom_config()`,
+     outputs bit-equal);
   4c. serve: the demo server's service from `rga3_tpu_torch.serve`'s
      `build_service` (`--model_dir dummy --model_size 7b --int4 --draft_dir
      dummy --spec_k 4`: the int4 UniGR, int8 tower, SAM2 Hiera-L, random
@@ -229,6 +249,14 @@ SERVE_TOKENS = 32
 SERVE_DRAFT_TOKENS = 16
 SERVE_K = 4
 SERVE_WINDOW_MS = 250
+# phase 4d: the region-QA trees (720p videos, ViP-Bench's images) and the
+# ViP-Bench answers' new tokens
+REGION_VIDEOS = 2
+REGION_FRAMES = 24
+REGION_SIZE = (720, 1280)
+REFER_FRAMES = 32
+VIP_SIZE = (768, 1024)
+VIP_TOKENS = 32
 # phase 3b: the VOS driver's MeViS tree (a 720p video) and its eval workers
 # (the card's host has 8 cores), the image driver's ReasonSeg images
 EVAL_FRAMES = 64
@@ -1321,7 +1349,7 @@ def stom_phase(chat4, frames, seed, card_line, read_path) -> dict:
     initialiser scales) on the card, its launches read after it; one
     `propagate_in_video` cold, warm and traced; the tracker in f32 on the
     card against the same weights on the CPU; track_batch against track.
-    Returns the path's (launches, calls)."""
+    Returns the path's (launches, calls) and the CoTracker3 (for phase 4d)."""
     import numpy as np
     import torch
     from rga3_tpu_torch.evaluation.videoinfer import run_inference
@@ -1527,9 +1555,326 @@ def stom_phase(chat4, frames, seed, card_line, read_path) -> dict:
             f"(tol {BATCH_TOL_PX}), visibility equal on {agree:.4f} (at least {BATCH_VIS})")
         if not (err <= BATCH_TOL_PX and agree >= BATCH_VIS):
             raise AssertionError("stom: track_batch disagrees with track")
-    del model, pred, stom, by_iters
+    del pred, stom, by_iters
     torch.cuda.empty_cache()
-    return {"region_qa": path}
+    return {"region_qa": path}, model
+
+
+# --------------------------------------------------------------------------
+# the region-QA benchmark drivers through their CLIs, on the int4 chat
+# --------------------------------------------------------------------------
+
+
+def save_tracker_npz(path: str, model) -> None:
+    """A self-describing CoTracker3 weight file (`keystr`-keyed f32 leaves
+    and a `__config__` entry) of `model`, which `default_tracker` loads from
+    an `RGA3_STOM_TRACKER` path ending in `.npz`."""
+    import dataclasses
+
+    import numpy as np
+    from rga3_tpu_torch.convert import flax_tree_from_torch
+
+    arrays = {}
+
+    def walk(node, keys):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, keys + (k,))
+            else:
+                arrays["['params']" + "".join(f"['{x}']" for x in keys + (k,))] = v
+
+    walk(flax_tree_from_torch(model), ())
+    arrays["__config__"] = np.frombuffer(
+        json.dumps(dataclasses.asdict(model.cfg)).encode(), np.uint8)
+    np.savez(path, **arrays)
+
+
+class RecordingChat:
+    """A `UniGRChat` that records each `answer`'s prompt, frames, answer and
+    forwards, and the token ids each generation returned."""
+
+    def __init__(self, chat):
+        self.chat, self.calls, self.tokens = chat, [], []
+        generate = chat._generate
+
+        def recorded(encs, length_bucket, suppress_ids):
+            toks = generate(encs, length_bucket, suppress_ids)
+            self.tokens.append((toks.clone(), list(suppress_ids)))
+            return toks
+
+        chat._generate = recorded
+
+    def answer(self, question, video_frames=None, images=None, suppress_ids=()):
+        out = self.chat.answer(question, video_frames=video_frames, images=images,
+                               suppress_ids=suppress_ids)
+        self.calls.append((question, [f.copy() for f in video_frames or []], out,
+                           self.chat.last_stats["forwards"]))
+        return out
+
+    def answer_batch(self, questions, **kw):
+        out = self.chat.answer_batch(questions, **kw)
+        self.calls.append((questions, None, out, self.chat.last_stats["forwards"]))
+        return out
+
+
+def region_qa_phase(chat4, tracker, frames, seed, card_line, read_path) -> dict:
+    """Phase 4d (see the module docstring): the three region-QA paths through
+    their CLIs (`eval_videoinfer.main`, `eval_region_qa.main`) on phase 4's
+    int4 chat, STOM over phase 4b's CoTracker3 written as a weight file and
+    named by RGA3_STOM_TRACKER; STOM over LK on the host; phase 4b's tracker
+    through the official checkpoint layout. Works under build/region_qa/.
+    Returns the paths' (launches, calls)."""
+    import dataclasses
+    import random
+
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.evaluation import eval_region_qa, eval_videoinfer
+    from rga3_tpu_torch.evaluation.caption_metrics import evaluate_captions, meteor_stages
+    from rga3_tpu_torch.evaluation.region_qa_eval import eval_videorefer, suppress_token_ids
+    from rga3_tpu_torch.models.stom.convert import (
+        build_cotracker3_from_checkpoint, export_torch_state_dict,
+    )
+    from rga3_tpu_torch.models.stom.cotracker3 import CoTracker3Predictor
+    from rga3_tpu_torch.models.stom.stom import STOM
+    from rga3_tpu_torch.models.stom.tracker import LKTracker
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.tools.synth_trees import (
+        shifted_patch_clip, write_videoinfer_tree, write_videorefer_tree, write_vipbench_tree,
+    )
+
+    work = os.path.join(HERE, "build", "region_qa")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = {}
+    model = (chat4.model, chat4.processor)
+    per_forward = 7 * chat4.model.cfg.text.num_hidden_layers + 1
+    npz = os.path.join(work, "cotracker3_phase4b.npz")
+    save_tracker_npz(npz, tracker)
+    saved_choice = os.environ.get("RGA3_STOM_TRACKER")
+    os.environ["RGA3_STOM_TRACKER"] = npz
+
+    def counted(name, n_forwards):
+        """Read the path's counts after its cold call; int4_matmul once a
+        projection a forward, flash_attention launched."""
+        launches, calls = read_path()
+        paths[name] = (launches, calls)
+        log(f"region_qa {name}: launches { {k: v for k, v in launches.items() if v} }")
+        if launches["int4_matmul"] != per_forward * n_forwards or launches["flash_attention"] <= 0:
+            raise AssertionError(f"region_qa {name}: int4_matmul {launches['int4_matmul']} for "
+                                 f"{n_forwards} forwards x {per_forward}, flash_attention "
+                                 f"{launches['flash_attention']}")
+
+    try:
+        # -- VideoInfer: 2 shards, a resume, merge, eval
+        t0 = time.perf_counter()
+        vi = write_videoinfer_tree(os.path.join(work, "videoinfer"), seed=seed,
+                                   n_videos=REGION_VIDEOS, n_frames=REGION_FRAMES,
+                                   size=REGION_SIZE, n_expressions=2, n_qa=2)
+        log(f"region_qa: VideoInfer tree, {REGION_VIDEOS} videos x {REGION_FRAMES} frames at "
+            f"{REGION_SIZE[0]}x{REGION_SIZE[1]}, {len(vi['ids'])} QA, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        data = ["--data_root", vi["data_root"]]
+        flags = ["--use_stom", "--batch_size", "4", "--subset_num", "2"]
+        torch.cuda.reset_peak_memory_stats()
+        shard_ids, shard_files = [], []
+        for k in range(2):
+            out = os.path.join(work, f"pred_{k}.jsonl")
+            if k == 0:
+                reset_launches()
+            t1 = time.perf_counter()
+            res = eval_videoinfer.main(["--stage", "infer", *data, "--out", out, *flags,
+                                        "--subset_idx", str(k)], model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            stats = res["chat"].last_stats
+            if k == 0:
+                counted("videoinfer", stats["forwards"])
+            sec = res["seconds"]
+            log(f"region_qa videoinfer shard {k} ({'cold' if k == 0 else 'warm'}): {res['n']} "
+                f"items in {wall:.3f} s: load {sec['load']:.3f} s, STOM leg {sec['stom_s']:.3f} s "
+                f"(wait {sec['stom_wait_s']:.3f} s), answer_batch leg {sec['answer_s']:.3f} s "
+                f"(prefill {stats['prefill_s']:.4f} s, {stats['forwards']} forwards); "
+                f"{card_line}")
+            with open(out) as f:
+                shard_ids.append([json.loads(line)["id"] for line in f])
+            shard_files.append(out)
+            if res["n"] != 4:
+                raise AssertionError(f"region_qa videoinfer shard {k}: {res['n']} items")
+        if sorted(shard_ids[0] + shard_ids[1]) != sorted(vi["ids"]) or set(shard_ids[0]) & set(
+                shard_ids[1]):
+            raise AssertionError(f"region_qa videoinfer: shards {shard_ids} are not the ids")
+        before = open(shard_files[0], "rb").read()
+        again = eval_videoinfer.main(["--stage", "infer", *data, "--out", shard_files[0], *flags,
+                                      "--subset_idx", "0"], model=model)
+        if again["n"] != 0 or open(shard_files[0], "rb").read() != before:
+            raise AssertionError("region_qa videoinfer: the resume wrote again")
+        merged = os.path.join(work, "pred.jsonl")
+        t1 = time.perf_counter()
+        m = eval_videoinfer.main(["--stage", "merge", "--out", merged, "--shards",
+                                  os.path.join(work, "pred_*.jsonl")])
+        t_merge = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        scores = eval_videoinfer.main(["--stage", "eval", *data, "--out", merged])
+        t_eval = time.perf_counter() - t1
+        answers = eval_videoinfer.load_answers(vi["data_root"])
+        with open(merged) as f:
+            preds = [json.loads(line) for line in f]
+        direct = evaluate_captions([p["pred"] for p in preds], [[answers[p["id"]]] for p in preds])
+        direct["n"] = len(preds)
+        log(f"region_qa videoinfer: resume wrote {again['n']}; merge {m['n']} in {t_merge:.3f} "
+            f"s, eval {t_eval:.3f} s: {scores} (METEOR stages {meteor_stages()}); peak memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card_line}")
+        if m["n"] != len(vi["ids"]) or scores != direct:
+            raise AssertionError(f"region_qa videoinfer: merged {m['n']}, scores {scores} vs "
+                                 f"{direct}")
+
+        # -- VideoRefer-Bench-Q: records against direct answers of the recorded prompts
+        t0 = time.perf_counter()
+        vr = write_videorefer_tree(os.path.join(work, "videorefer"), seed=seed, n_items=2,
+                                   n_frames=REFER_FRAMES, size=REGION_SIZE)
+        log(f"region_qa: VideoRefer-Bench-Q tree, 2 items of {REFER_FRAMES} frames at "
+            f"{REGION_SIZE[0]}x{REGION_SIZE[1]}, written in {time.perf_counter() - t0:.2f} s")
+        built = eval_region_qa.build_chat
+        proxies = []
+
+        def recording_chat(args, model=None):
+            chat, proc = built(args, model)
+            proxies.append(RecordingChat(chat))
+            return proxies[-1], proc
+
+        eval_region_qa.build_chat = recording_chat
+        try:
+            out = os.path.join(work, "videorefer.jsonl")
+            random.seed(seed)  # the overlays' line widths are drawn from Python's random
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t1 = time.perf_counter()
+            res = eval_region_qa.main(["--bench", "videorefer", "--question_file",
+                                       vr["question_file"], "--video_folder", vr["video_folder"],
+                                       "--out", out, "--num_frames", "16", "--max_new_tokens",
+                                       "16"], model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            rec = proxies[-1]
+            counted("videorefer", sum(c[3] for c in rec.calls))
+            sec = res["seconds"]
+            log(f"region_qa videorefer (cold): {res['new']} items in {wall:.3f} s: STOM leg "
+                f"{sec['stom_s']:.3f} s, answer leg {sec['answer_s']:.3f} s "
+                f"({[c[3] for c in rec.calls]} forwards); peak memory allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card_line}")
+            with open(out) as f:
+                records = [json.loads(line) for line in f]
+            for (prompt, fr, answer, _), r in zip(rec.calls, records):
+                again = rec.chat.answer(prompt, video_frames=fr)
+                log(f"region_qa videorefer item {r['idx']}: {len(fr)} frames, pred {r['pred']!r}, "
+                    f"answer {answer[:40]!r}, direct {again[:40]!r}; prompt {prompt[:90]!r}")
+                if again != answer or r["pred"] != (again[0] if again else ""):
+                    raise AssertionError("region_qa videorefer: the record differs from a direct "
+                                         "answer of its prompt and frames")
+            if len(records) != 2 or len(rec.calls) != 2 or any(len(c[1]) != 16
+                                                               for c in rec.calls):
+                raise AssertionError(f"region_qa videorefer: {len(records)} records")
+            acc = eval_region_qa.main(["--bench", "videorefer", "--stage", "eval", "--out", out])
+            if acc != eval_videorefer(out):
+                raise AssertionError("region_qa videorefer: the eval stage's accuracies differ")
+            log(f"region_qa videorefer eval: {acc}")
+
+            # -- ViP-Bench: 2 batches of 2, [SEG] and "segmentation" banned
+            vip = write_vipbench_tree(os.path.join(work, "vipbench"), seed=seed,
+                                      n_images=4, size=VIP_SIZE)
+            answers_path = os.path.join(work, "vipbench_answers.json")
+            reset_launches()
+            t1 = time.perf_counter()
+            res = eval_region_qa.main(["--bench", "vipbench", "--question_file",
+                                       vip["question_file"], "--image_folder",
+                                       vip["image_folder"], "--out", answers_path,
+                                       "--batch_size", "2", "--max_new_tokens",
+                                       str(VIP_TOKENS)], model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            rec = proxies[-1]
+            counted("vipbench", sum(c[3] for c in rec.calls))
+            sup = suppress_token_ids(chat4.processor.tokenizer)
+            generated = set(int(t) for toks, _ in rec.tokens for t in toks.flatten())
+            with open(answers_path) as f:
+                written = json.load(f)
+            log(f"region_qa vipbench (cold): {res['new']} images at {VIP_SIZE[0]}x{VIP_SIZE[1]} "
+                f"in {wall:.3f} s ({[c[3] for c in rec.calls]} forwards); suppressed ids {sup}; "
+                f"answers {[(k, v[:40]) for k, v in written.items()]}; {card_line}")
+            if (not sup or 151665 not in sup or generated & set(sup)
+                    or any(s != sup for _, s in rec.tokens) or len(rec.tokens) != 2
+                    or sorted(written) != [f"v1_{i}" for i in range(4)]):
+                raise AssertionError(f"region_qa vipbench: suppressed {sup}, generated "
+                                     f"{sorted(generated & set(sup))} of them, answers "
+                                     f"{sorted(written)}")
+        finally:
+            eval_region_qa.build_chat = built
+    finally:
+        if saved_choice is None:
+            os.environ.pop("RGA3_STOM_TRACKER", None)
+        else:
+            os.environ["RGA3_STOM_TRACKER"] = saved_choice
+
+    # -- STOM over LK on the host: phase 4b's items, and a known shift
+    import cv2
+
+    lk = STOM(tracker=LKTracker())
+    for it in region_items(frames):
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = lk.propagate_in_video(list(it["frames"]), it["vip_overlay"], it["key_idx"],
+                                        shape=it["shape"])
+            times.append(time.perf_counter() - t1)
+        log(f"region_qa LK STOM, item {it['id']} ({len(out)} frames at {frames[0].shape[0]}x"
+            f"{frames[0].shape[1]}, OpenCV {cv2.__version__}): cold {times[0]:.4f} s, warm "
+            f"{times[1]:.4f} s a clip on the host; {card_line}")
+        if len(out) != len(frames) or out[0].shape != frames[0].shape:
+            raise AssertionError("region_qa LK: wrong frames")
+    step, key = (6, -3), 2
+    clip, boxes = shifted_patch_clip(np.random.default_rng(seed), 8, frames[0].shape[:2],
+                                     (120, 160), step, (300, 260))
+    y0, y1, x0, x1 = boxes[key]
+    vip = np.zeros(clip[0].shape[:2] + (4,), np.uint8)
+    vip[y0 - 4:y1 + 4, x0 - 4:x1 + 4] = (255, 0, 0, 255)
+    vip[y0:y1, x0:x1] = 0
+    moved = lk.propagate_in_video(clip, vip, key)
+    offsets = []
+    for t, f in enumerate(moved):
+        ys, xs = np.nonzero((f[..., 0] == 255) & (f[..., 1] == 0) & (f[..., 2] == 0))
+        offsets.append((int(xs.min() - (x0 - 4)), int(ys.min() - (y0 - 4))))
+    errs = [max(abs(dx - (t - key) * step[0]), abs(dy - (t - key) * step[1]))
+            for t, (dx, dy) in enumerate(offsets)]
+    log(f"region_qa LK shift check: patch moved ({step[0]}, {step[1]}) px a frame, rectangle "
+        f"offsets {offsets}, max error {max(errs)} px (tol 1); {card_line}")
+    if max(errs) > 1:
+        raise AssertionError("region_qa LK: the propagated rectangle misses the known shift")
+
+    # -- phase 4b's tracker through the official checkpoint layout
+    ckpt = os.path.join(work, "scaled_offline.pth")
+    t1 = time.perf_counter()
+    torch.save(export_torch_state_dict(tracker), ckpt)
+    rebuilt = build_cotracker3_from_checkpoint(ckpt, base=stom_config())
+    t_conv = time.perf_counter() - t1
+    want = dataclasses.asdict(stom_config())
+    got = dataclasses.asdict(rebuilt.cfg)
+    items = region_items(frames)
+    preds = [CoTracker3Predictor(m) for m in (tracker, rebuilt)]
+    mask = STOM._query_mask(items[0]["vip_overlay"])
+    prep = preds[0]._prep(list(frames), preds[0]._mask_points(mask, 100), 0)
+    outs = [p._forward([prep]) for p in preds]
+    equal = all(torch.equal(outs[0][k], outs[1][k]) for k in ("tracks", "vis", "conf"))
+    log(f"region_qa convert: official-layout state dict ({os.path.getsize(ckpt) / 1e6:.1f} MB) "
+        f"saved and rebuilt in {t_conv:.2f} s; inferred config equal to stom_config(): "
+        f"{got == want}; tracks, vis and conf bit-equal to phase 4b's module on one clip: "
+        f"{equal}; {card_line}")
+    if got != want or not equal:
+        raise AssertionError(f"region_qa convert: config {got} vs {want}, outputs equal {equal}")
+    del rebuilt, preds, outs
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
 
 
 # --------------------------------------------------------------------------
@@ -3113,10 +3458,16 @@ def main() -> int:
 
     # ---- 4b. STOM region QA: overlay propagation + int4 answer_batch
     t0 = time.perf_counter()
-    paths.update(stom_phase(chat4, frames, seed, card_line, read_path))
-    del chat4
-    torch.cuda.empty_cache()
+    stom_paths, tracker = stom_phase(chat4, frames, seed, card_line, read_path)
+    paths.update(stom_paths)
     log(f"phase stom: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 4d. the region-QA drivers through their CLIs, on the int4 chat
+    t0 = time.perf_counter()
+    paths.update(region_qa_phase(chat4, tracker, frames, seed, card_line, read_path))
+    del chat4, tracker
+    torch.cuda.empty_cache()
+    log(f"phase region_qa: {time.perf_counter() - t0:.2f} s")
 
     # ---- 4c. the demo server: int4 UniGR + 3B draft, driven over HTTP
     t0 = time.perf_counter()

@@ -1,5 +1,8 @@
-"""VideoInfer region-level video QA: `run_inference`, the counterpart of
-`rga3_tpu/evaluation/videoinfer_eval.py`'s.
+"""VideoInfer region-level video QA, the counterpart of
+`rga3_tpu/evaluation/videoinfer_eval.py`: `run_inference` writes a shard's
+predictions, `merge_shards` merges the shards, `run_eval` scores them with
+the caption metrics and `build_eval_result` nests them for the GPT judge's
+batch requests (`gpt_judge.build_videoinfer_batch_requests`).
 
 Each item carries an RGBA overlay drawn on one key frame (`vip_overlay`).
 STOM propagates it to every frame (or, without STOM, it is composited onto
@@ -17,12 +20,13 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from ..data.templates import REFERRING_VQA_PROMPT
 from ..device import DeviceLike
+from .caption_metrics import evaluate_captions
 
 
 def run_inference(
@@ -40,8 +44,8 @@ def run_inference(
 ) -> int:
     """Writes {"id", "pred"} JSON lines to `out_path`, skipping ids already
     there; returns how many it wrote. `stom`: the STOM to propagate with
-    (default: `STOM(device=device)`, the repo's CoTracker3 weights on the
-    card unless `device` asks for the CPU). `stats`, when given, receives
+    (default: `STOM(device=device)`, the tracker `stom.default_tracker`
+    picks). `stats`, when given, receives
     the host seconds of the STOM leg (`stom_s`, on the worker thread when
     batched), of the chat leg (`answer_s`) and of the main thread's waits
     for STOM (`stom_wait_s`)."""
@@ -137,3 +141,74 @@ def run_inference(
     if stats is not None:
         stats.update(acc)
     return n
+
+
+def merge_shards(shard_paths: Sequence[str], out_path: str) -> int:
+    """The shards' {"id", "pred"} lines into one file, one line an id (the
+    last shard's wins); missing shards and unreadable lines are skipped.
+    Returns the ids written."""
+    seen = {}
+    for p in shard_paths:
+        if not os.path.exists(p):
+            continue
+        with open(p) as f:
+            for line in f:
+                try:
+                    d = json.loads(line)
+                    seen[d["id"]] = d
+                except Exception:
+                    pass
+    with open(out_path, "w") as f:
+        for d in seen.values():
+            f.write(json.dumps(d) + "\n")
+    return len(seen)
+
+
+def build_eval_result(pred_path: str, qa_data: Dict[str, Dict]) -> Dict[str, Dict]:
+    """Predictions (ids "vid____exp____qa") and the nested test.json ->
+    eval_result[vid][exp][qa] = {"question", "gt_answer", "pred_answer"},
+    the GPT batch judge's input; ids without a prediction are left out."""
+    preds = {}
+    with open(pred_path) as f:
+        for line in f:
+            try:
+                d = json.loads(line)
+                preds[d["id"]] = d["pred"]
+            except Exception:
+                pass
+    out: Dict[str, Dict] = {}
+    for vid, v in qa_data.items():
+        for exp_id, exp in v["expressions"].items():
+            for qa_id, qa in exp["QA"].items():
+                pid = f"{vid}____{exp_id}____{qa_id}"
+                if pid not in preds:
+                    continue
+                out.setdefault(vid, {}).setdefault(exp_id, {})[qa_id] = {
+                    "question": qa["Q"],
+                    "gt_answer": qa.get("A", ""),
+                    "pred_answer": preds[pid],
+                }
+    return out
+
+
+def run_eval(pred_path: str, answers: Dict[str, str],
+             sentence_similarity_fn: Optional[Callable] = None,
+             gpt_judge_fn: Optional[Callable] = None) -> Dict[str, float]:
+    """The caption metrics of the predictions whose id has an answer
+    (`answers`: id -> ground truth), "n" of them; with `gpt_judge_fn(pred,
+    answer) -> {"acc", "score"}`, "GPT-acc" and "GPT-score" too."""
+    hyps, refs = [], []
+    with open(pred_path) as f:
+        for line in f:
+            d = json.loads(line)
+            if d["id"] not in answers:
+                continue
+            hyps.append(d["pred"])
+            refs.append([answers[d["id"]]])
+    out = evaluate_captions(hyps, refs, sentence_similarity_fn=sentence_similarity_fn)
+    out["n"] = len(hyps)
+    if gpt_judge_fn is not None:
+        scores = [gpt_judge_fn(h, r[0]) for h, r in zip(hyps, refs)]
+        out["GPT-acc"] = float(np.mean([s.get("acc", 0) for s in scores]))
+        out["GPT-score"] = float(np.mean([s.get("score", 0) for s in scores]))
+    return out

@@ -1,6 +1,7 @@
-"""STOM overlay propagation with the CoTracker3 point tracker (counterpart
-of `rga3_tpu/models/stom/`)."""
+"""STOM overlay propagation with the CoTracker3 or the LK point tracker
+(counterpart of `rga3_tpu/models/stom/`)."""
 from .stom import STOM, default_tracker  # noqa: F401
+from .tracker import LKTracker  # noqa: F401
 from .cotracker3 import (  # noqa: F401
     CoTracker3Offline,
     CoTracker3Predictor,

@@ -14,9 +14,10 @@ video by tracking points seeded in the overlay region:
   * mask-type overlays: a morphologically closed mask of the visible points
     and a disc in the overlay's colour at its centroid.
 
-The tracker runs on the card (`cotracker3.CoTracker3Predictor`); the
-compositing is host numpy, byte for byte the reference's: cv2's circle,
-closing and moments are `raster`'s numpy versions, PIL's alpha composite is
+The tracker is CoTracker3 on the card (`cotracker3.CoTracker3Predictor`) or
+LK on the host (`tracker.LKTracker`, `default_tracker`); the compositing is
+host numpy, byte for byte the reference's: cv2's circle, closing and
+moments are `raster`'s numpy versions, PIL's alpha composite is
 `_composite_window`.
 """
 from __future__ import annotations
@@ -66,18 +67,18 @@ def _rgba_bbox(rgba: np.ndarray) -> Optional[Tuple[int, int, int, int]]:
 
 
 def default_tracker(device: DeviceLike = None):
-    """STOM's tracker from `RGA3_STOM_TRACKER`: `cotracker3` or unset /
-    `auto` the repo's trained CoTracker3 weights, a path ending in `.npz`
-    that self-describing weight file. The JAX package's LK tracker (`lk`,
-    and its fallback when no weight file exists) is not ported (ROADMAP.md,
-    Queue 1): those choices raise."""
+    """STOM's tracker from `RGA3_STOM_TRACKER`: `lk` the LK tracker (on the
+    host), a path ending in `.npz` that self-describing CoTracker3 weight
+    file (raises if it does not exist), `cotracker3` the repo's trained
+    CoTracker3 weights (raises if they do not exist), unset or `auto` those
+    weights when they exist, else the LK tracker. A CoTracker3 runs on the
+    card unless `device` asks for the CPU."""
     from .cotracker3 import _SHIPPED_WEIGHTS, shipped_tracker
+    from .tracker import LKTracker
 
     choice = os.environ.get("RGA3_STOM_TRACKER", "auto")
     if choice.lower() == "lk":
-        raise NotImplementedError(
-            "RGA3_STOM_TRACKER=lk: the LK tracker (cv2's calcOpticalFlowPyrLK) "
-            "is not ported to rga3_tpu_torch (ROADMAP.md, Queue 1)")
+        return LKTracker()
     if choice.endswith(".npz"):
         tracker = shipped_tracker(path=choice, device=device)
         if tracker is None:
@@ -85,9 +86,10 @@ def default_tracker(device: DeviceLike = None):
         return tracker
     tracker = shipped_tracker(device=device)
     if tracker is None:
-        raise FileNotFoundError(
-            f"no CoTracker3 weights at {_SHIPPED_WEIGHTS}; the LK tracker the JAX "
-            "package falls back to is not ported (ROADMAP.md, Queue 1)")
+        if choice.lower() == "cotracker3":
+            raise FileNotFoundError(
+                f"RGA3_STOM_TRACKER=cotracker3 but no weights at {_SHIPPED_WEIGHTS}")
+        return LKTracker()
     return tracker
 
 
@@ -105,8 +107,7 @@ def _like_frames(frames: Sequence, out: List[np.ndarray]) -> List:
 
 class STOM:
     """Overlay propagation over a tracker with STOM's interface; the
-    default tracker (`default_tracker`) runs on the card unless `device`
-    asks for the CPU."""
+    default tracker is `default_tracker(device)`'s."""
 
     def __init__(self, tracker=None, device: DeviceLike = None):
         self.tracker = tracker or default_tracker(device)

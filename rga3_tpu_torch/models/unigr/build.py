@@ -26,7 +26,8 @@ from ...ops.quant import (
     QUANT_CKPT_META, is_quantized_dir, load_quantized, quantize_for_serving, set_config_flags,
 )
 from ..qwen25vl import QWEN25_VL_3B, QWEN25_VL_7B, tiny_config
-from ..qwen25vl.loader import load_unigr_state_dict
+from ..qwen25vl.loader import load_qwen25vl_state_dict, load_unigr_state_dict
+from ..qwen25vl.model import Qwen25VL
 from ..sam2.config import Sam2Config, tiny_sam2_config
 from ..sam2.loader import load_sam2_state_dict
 from .model import UniGR, UniGRConfig
@@ -53,6 +54,25 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0, help="of the dummy weights")
     p.add_argument("--device", default=None, help="default: the current CUDA device")
 
+
+def add_draft_args(p: argparse.ArgumentParser) -> None:
+    """The flags `build_draft` reads (besides `--model_size` and `--seed`)."""
+    p.add_argument("--draft_dir", default=None,
+                   help="Qwen2.5-VL-3B HF dir or 'dummy': speculative decoding draft")
+    p.add_argument("--spec_k", type=int, default=4, help="draft proposals an iteration")
+
+
+def build_draft(args, device, dtype) -> Qwen25VL:
+    """The speculative-decoding draft of `--draft_dir`, unquantized: a
+    Qwen2.5-VL-3B (the tiny config with `--model_size tiny`), random from
+    `--seed` + 1 for `dummy`."""
+    draft = Qwen25VL(qwen_config("tiny" if args.model_size == "tiny" else "3b"), device=device,
+                     dtype=dtype)
+    if args.draft_dir == "dummy":
+        draft.init_weights(torch.Generator(device).manual_seed(args.seed + 1))
+    else:
+        draft.load_state_dict(load_qwen25vl_state_dict(args.draft_dir, dtype), strict=True)
+    return draft.eval()
 
 
 def _quant_flags(args, qcfg):

@@ -15,22 +15,16 @@ from __future__ import annotations
 import argparse
 from typing import Callable, Optional, Sequence
 
-import torch
-
 from ..data.video import load_frames_from_video
 from ..evaluation.segmentor import UniGRChat, UniGRSegmentor
-from ..models.qwen25vl.loader import load_qwen25vl_state_dict
-from ..models.qwen25vl.model import Qwen25VL
-from ..models.unigr.build import add_model_args, build_model, qwen_config
+from ..models.unigr.build import add_draft_args, add_model_args, build_draft, build_model
 from .app import UniGRService, serve
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     add_model_args(p)
-    p.add_argument("--draft_dir", default=None,
-                   help="Qwen2.5-VL-3B HF dir or 'dummy': speculative decoding draft")
-    p.add_argument("--spec_k", type=int, default=4, help="draft proposals an iteration")
+    add_draft_args(p)
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--qa_batch_window_ms", type=int, default=0,
                    help="> 0 coalesces concurrent QA requests into one answer_batch call, "
@@ -39,16 +33,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=7860)
     return p.parse_args(argv)
-
-
-def build_draft(args, device, dtype) -> Qwen25VL:
-    draft = Qwen25VL(qwen_config("tiny" if args.model_size == "tiny" else "3b"), device=device,
-                     dtype=dtype)
-    if args.draft_dir == "dummy":
-        draft.init_weights(torch.Generator(device).manual_seed(args.seed + 1))
-    else:
-        draft.load_state_dict(load_qwen25vl_state_dict(args.draft_dir, dtype), strict=True)
-    return draft.eval()
 
 
 def build_service(args, load_video: Callable = load_frames_from_video) -> UniGRService:

@@ -9,7 +9,11 @@ the MeViS, ReVOS, ReasonVOS or Ref-YTVOS layout. `write_reason_seg_tree`
 writes ReasonSeg images with labelme polygon annotations (a target and an
 "ignore" shape each). `write_train_tree` writes the layout every training
 dataset of `data.datasets.DATASET_REGISTRY` reads (and a ReasonSeg val
-split), at the sizes it is given.
+split), at the sizes it is given. `write_videoinfer_tree`,
+`write_videorefer_tree` and `write_vipbench_tree` write the region-QA
+benchmarks' layouts: VideoInfer's QA tree with RGBA prompt overlays,
+VideoRefer-Bench-Q's question list with key-frame RLEs, and ViP-Bench's
+question file with prompts drawn on the images.
 """
 from __future__ import annotations
 
@@ -146,6 +150,210 @@ def write_reason_seg_tree(root: str, split: str = "val", seed: int = 0, n_images
         with open(os.path.join(d, f"{split}{i:03d}.json"), "w") as f:
             json.dump(anno, f)
     return d
+
+
+# ---------------------------------------------------------------------------
+# region-QA benchmarks
+
+# overlay colours of the region-QA writers (names and values of
+# `data.visual_prompts.COLOR_POOL`)
+PROMPT_COLOURS = {"red": (255, 0, 0), "lime": (0, 255, 0), "blue": (0, 0, 255),
+                  "yellow": (255, 255, 0), "fuchsia": (255, 0, 255), "aqua": (0, 255, 255)}
+VIDEOREFER_TYPES = ("Basic Questions", "Sequential Questions", "Relationship Questions",
+                    "Reasoning Questions", "Future Predictions")
+
+
+def _motion(mask_t: np.ndarray) -> str:
+    """'left' / 'right' / 'up' / 'down': the larger move of an object's
+    centroid from its first to its last frame."""
+    ys0, xs0 = np.nonzero(mask_t[0])
+    ys1, xs1 = np.nonzero(mask_t[-1])
+    dy, dx = ys1.mean() - ys0.mean(), xs1.mean() - xs0.mean()
+    if abs(dx) >= abs(dy):
+        return "right" if dx > 0 else "left"
+    return "down" if dy > 0 else "up"
+
+
+def smooth_texture(rng: np.random.Generator, h: int, w: int, cell: int = 6) -> np.ndarray:
+    """(h, w, 3) uint8: noise on a `cell`-pixel lattice, linearly
+    interpolated (gradients for optical flow at every pixel)."""
+    gh, gw = h // cell + 2, w // cell + 2
+    grid = rng.uniform(0, 255, (gh, gw, 3))
+    ys, xs = np.arange(h) / cell, np.arange(w) / cell
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    top = grid[y0][:, x0] * (1 - fx) + grid[y0][:, x0 + 1] * fx
+    bot = grid[y0 + 1][:, x0] * (1 - fx) + grid[y0 + 1][:, x0 + 1] * fx
+    return np.round(top * (1 - fy) + bot * fy).astype(np.uint8)
+
+
+def shifted_patch_clip(rng: np.random.Generator, n_frames: int, size, patch, step, origin):
+    """A textured `patch` (h, w) moved by `step` (dx, dy), whole pixels, a
+    frame from `origin` (x, y) over a static textured background of `size`:
+    (frames, boxes), boxes[t] = (y0, y1, x0, x1) of the patch in frame t."""
+    h, w = size
+    ph, pw = patch
+    dx, dy = int(step[0]), int(step[1])
+    back = smooth_texture(rng, h, w, 8)
+    tex = smooth_texture(rng, ph, pw, 4)
+    frames, boxes = [], []
+    for t in range(n_frames):
+        x0, y0 = int(origin[0]) + dx * t, int(origin[1]) + dy * t
+        if not (0 <= x0 and x0 + pw <= w and 0 <= y0 and y0 + ph <= h):
+            raise ValueError(f"the patch leaves the frame at frame {t}")
+        f = back.copy()
+        f[y0:y0 + ph, x0:x0 + pw] = tex
+        frames.append(f)
+        boxes.append((y0, y0 + ph, x0, x0 + pw))
+    return frames, boxes
+
+
+def _rect_outline(h: int, w: int, mask: np.ndarray, rgb, alpha: int, width: int) -> np.ndarray:
+    """An RGBA overlay: a rectangle outline `width` px wide around the
+    mask's bounding box."""
+    ys, xs = np.nonzero(mask)
+    y0, y1, x0, x1 = ys.min(), ys.max() + 1, xs.min(), xs.max() + 1
+    vip = np.zeros((h, w, 4), np.uint8)
+    vip[max(y0 - width, 0):min(y1 + width, h), max(x0 - width, 0):min(x1 + width, w)] = (
+        *rgb, alpha)
+    vip[y0:y1, x0:x1] = 0
+    return vip
+
+
+def write_videoinfer_tree(root: str, split: str = "test", seed: int = 0, n_videos: int = 2,
+                          n_frames: int = 24, size=(48, 64), n_expressions: int = 2,
+                          n_qa: int = 2) -> Dict[str, object]:
+    """VideoInfer's layout under `root`:
+
+      <split>.json  {vid: {"expressions": {exp: {"QA": {qa: {"Q", "A"}},
+          "overlayed_frame_idx", "color", "shape", "anno_id"}}}}
+      frames/<vid>/<%05d>.jpg
+      visual_prompts/<vid>/<exp>/<shape>.npz  the RGBA overlay as "arr_0"
+      mask_dict.json  {str(anno_id): [RLE or None] * T}
+
+    Expression e of a video marks object e on a random key frame, with a
+    rectangle outline for even e and a half-transparent mask for odd e; its
+    QA ask for the object's colour and motion. Returns {"data_root",
+    "split", "ids"} (the item ids in `load_items`' order)."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    names = [f"{i:05d}" for i in range(n_frames)]
+    colour_names = list(PROMPT_COLOURS)
+    qa_data, mask_dict, ids = {}, {}, []
+    for v in range(n_videos):
+        vid = f"video{v:04d}"
+        frames, masks = synth_video(rng, n_frames, h, w, n_expressions)
+        _save_jpegs(frames, names, os.path.join(root, "frames", vid))
+        exps = {}
+        for e in range(n_expressions):
+            anno_id = v * n_expressions + e
+            mask_dict[str(anno_id)] = [rle.encode(m.astype(np.uint8)) if m.any() else None
+                                       for m in masks[e]]
+            key = int(rng.integers(n_frames))
+            shape = "rectangle" if e % 2 == 0 else "mask"
+            colour = colour_names[(v + e) % len(colour_names)]
+            if shape == "rectangle":
+                vip = _rect_outline(h, w, masks[e, key], PROMPT_COLOURS[colour], 255,
+                                    max(2, min(h, w) // 120))
+            else:
+                vip = np.zeros((h, w, 4), np.uint8)
+                vip[masks[e, key]] = (*PROMPT_COLOURS[colour], 128)
+            d = os.path.join(root, "visual_prompts", vid, str(e))
+            os.makedirs(d, exist_ok=True)
+            np.savez(os.path.join(d, f"{shape}.npz"), vip)
+            name = COLOURS[e % len(COLOURS)]
+            answers = [f"It is a {name} ellipse.",
+                       f"The {name} ellipse moves to the {_motion(masks[e])}."]
+            questions = ["What color is the marked object?", "Where does the marked object move?"]
+            qas = {f"q{q}": {"Q": questions[q % 2], "A": answers[q % 2]} for q in range(n_qa)}
+            exps[str(e)] = {"QA": qas, "overlayed_frame_idx": key, "color": colour,
+                            "shape": shape, "anno_id": anno_id}
+            ids += [f"{vid}____{e}____{q}" for q in qas]
+        qa_data[vid] = {"expressions": exps}
+    _dump(qa_data, os.path.join(root, f"{split}.json"))
+    _dump(mask_dict, os.path.join(root, "mask_dict.json"))
+    return {"data_root": root, "split": split, "ids": ids}
+
+
+def write_videorefer_tree(root: str, seed: int = 0, n_items: int = 5, n_frames: int = 32,
+                          size=(48, 64)) -> Dict[str, str]:
+    """VideoRefer-Bench-Q's layout under `root`: `videos/<video>/<%05d>.jpg`
+    and `VideoRefer-Bench-Q.json`, a list of {"video", "frame_idx",
+    "annotation" (one {str(frame_idx): {"segmentation": COCO RLE}} an object,
+    the key frame's), "Question" with `<objectN><region>` markers, "options",
+    "Answer", "type"}. Item i asks about one object (even i) or two (odd i),
+    its type the i-th of VIDEOREFER_TYPES in turn. Returns {"question_file",
+    "video_folder"}."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    names = [f"{i:05d}" for i in range(n_frames)]
+    data = []
+    for i in range(n_items):
+        video = f"vr{i:04d}"
+        n_obj = 1 + i % 2
+        frames, masks = synth_video(rng, n_frames, h, w, n_obj)
+        _save_jpegs(frames, names, os.path.join(root, "videos", video))
+        key = int(rng.integers(n_frames))
+        anno = [{str(key): {"segmentation": rle.encode(masks[o, key].astype(np.uint8))}}
+                for o in range(n_obj)]
+        moves = [_motion(masks[o]) for o in range(n_obj)]
+        if n_obj == 1:
+            question = "Which way does <object0><region> move?"
+            options = [f"({c}) <object0> moves {d}." for c, d in zip("ABCD", (
+                "left", "right", "up", "down"))]
+            answer = "ABCD"[("left", "right", "up", "down").index(moves[0])]
+        else:
+            question = "Do <object0><region> and <object1><region> move the same way?"
+            options = ["(A) Yes, both move " + moves[0] + ".", "(B) No, <object1> moves "
+                       + moves[1] + "."]
+            answer = "A" if moves[0] == moves[1] else "B"
+        data.append({"video": video, "frame_idx": key, "annotation": anno,
+                     "Question": question, "options": options,
+                     "Answer": f"({answer})",
+                     "type": VIDEOREFER_TYPES[i % len(VIDEOREFER_TYPES)]})
+    question_file = os.path.join(root, "VideoRefer-Bench-Q.json")
+    _dump(data, question_file)
+    return {"question_file": question_file, "video_folder": os.path.join(root, "videos")}
+
+
+def write_vipbench_tree(root: str, seed: int = 0, n_images: int = 4,
+                        size=(48, 64)) -> Dict[str, str]:
+    """ViP-Bench's layout under `root`: `images/<id>.jpg` with a coloured
+    rectangle drawn around one object (the benchmark's prompts are drawn on
+    its images), `questions.jsonl` rows {"question_id", "image", "text"} and
+    `vip-bench-meta-data.json` {"v1_<id>": {"image", "question", "answer",
+    "capability"}} (the GPT judge's ground truth). Returns
+    {"question_file", "image_folder", "meta_file"}."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rows, meta = [], {}
+    caps = (["rec"], ["ocr", "rec"], ["know"], ["math", "rec"])
+    for i in range(n_images):
+        frames, masks = synth_video(rng, 1, h, w, 2)
+        colour = list(PROMPT_COLOURS)[i % len(PROMPT_COLOURS)]
+        vip = _rect_outline(h, w, masks[0, 0], PROMPT_COLOURS[colour], 255,
+                            max(2, min(h, w) // 120))
+        img = frames[0].copy()
+        on = vip[..., 3] > 0
+        img[on] = vip[on, :3]
+        name = f"{i}.jpg"
+        Image.fromarray(img).save(os.path.join(root, "images", name))
+        text = f"What is the color of the object within the {colour} rectangle?"
+        rows.append({"question_id": i, "image": name, "text": text})
+        meta[f"v1_{i}"] = {"image": name, "question": text,
+                           "answer": f"{COLOURS[0]} <OR> {COLOURS[0]} ellipse",
+                           "capability": caps[i % len(caps)]}
+    question_file = os.path.join(root, "questions.jsonl")
+    with open(question_file, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    meta_file = os.path.join(root, "vip-bench-meta-data.json")
+    _dump(meta, meta_file)
+    return {"question_file": question_file, "image_folder": os.path.join(root, "images"),
+            "meta_file": meta_file}
 
 
 # ---------------------------------------------------------------------------

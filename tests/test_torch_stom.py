@@ -13,11 +13,14 @@
   * the key-frame visibility fallback of `track_in_video`, which the batch
     path lacks in both packages;
   * the predictor's `track_batch` against `track`;
+  * `default_tracker`: `lk` and `auto` without weights give the LK tracker,
+    `cotracker3` without weights and a missing `.npz` raise, as in JAX;
   * `run_inference` with a recording stub chat, both packages, batch sizes
     1 and 2: the same questions, the same frames, and resume.
 
 The tests pass their tracker explicitly or set `RGA3_STOM_TRACKER` with
-monkeypatch (the suite's conftest pins it to `lk`).
+monkeypatch (the suite's conftest pins it to `lk`); `default_tracker`'s
+choices are held to the JAX package's here and in `test_torch_stom_lk.py`.
 """
 import dataclasses
 import json
@@ -280,9 +283,12 @@ def test_track_batch_matches_track():
 
 
 def test_default_tracker_and_device_guards(monkeypatch):
+    from rga3_tpu.models.stom.tracker import LKTracker as JaxLK
+    from rga3_tpu_torch.models.stom.tracker import LKTracker
+
     monkeypatch.setenv("RGA3_STOM_TRACKER", "lk")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstom.default_tracker("cpu")
+    assert isinstance(tstom.default_tracker("cpu"), LKTracker)
+    assert isinstance(jstom.default_tracker(), JaxLK)
     monkeypatch.setenv("RGA3_STOM_TRACKER", "/nonexistent/weights.npz")
     with pytest.raises(FileNotFoundError):
         tstom.default_tracker("cpu")
@@ -291,8 +297,15 @@ def test_default_tracker_and_device_guards(monkeypatch):
     assert isinstance(pred, tct.CoTracker3Predictor) and pred.model.cfg.latent_dim == 96
     monkeypatch.setenv("RGA3_STOM_TRACKER", "auto")
     monkeypatch.setattr(tct, "_SHIPPED_WEIGHTS", "/nonexistent/cotracker3_small.npz")
-    with pytest.raises(FileNotFoundError, match="not ported"):
+    monkeypatch.setattr(jct, "_SHIPPED_WEIGHTS", "/nonexistent/cotracker3_small.npz")
+    # no weights: auto falls back to LK in both packages, cotracker3 raises
+    assert isinstance(tstom.default_tracker("cpu"), LKTracker)
+    assert isinstance(jstom.default_tracker(), JaxLK)
+    monkeypatch.setenv("RGA3_STOM_TRACKER", "cotracker3")
+    with pytest.raises(FileNotFoundError, match="no weights"):
         tstom.default_tracker("cpu")
+    with pytest.raises(FileNotFoundError):
+        jstom.default_tracker()
     if not torch.cuda.is_available():
         monkeypatch.setenv("RGA3_STOM_TRACKER", SMALL)
         with pytest.raises(RuntimeError, match="device='cpu'"):
