@@ -62,8 +62,9 @@ Phases, each timed on its own line:
      (iteration 1 within BATCH_BF16_FACTOR of bf16 against f32 on the card,
      bf16 card against bf16 CPU logged beside);
   4d. region_qa: the region-QA benchmark CLIs on phase 4's int4 chat
-     (`main(argv, model=...)`), STOM over phase 4b's CoTracker3 written as
-     a weight file under build/region_qa/ and named by RGA3_STOM_TRACKER:
+     (`main(argv, model=...)`), STOM over phase 4b's CoTracker3 written by
+     `save_cotracker3` (flax layout, f16) under build/region_qa/ and named
+     by RGA3_STOM_TRACKER:
      `eval_videoinfer` on a VideoInfer tree (REGION_VIDEOS videos x
      REGION_FRAMES frames at REGION_SIZE, a rectangle and a mask overlay a
      video, 8 QA) with --use_stom --batch_size 4 in 2 shards (the union the
@@ -81,6 +82,25 @@ Phases, each timed on its own line:
      official checkpoint layout, `torch.save`d and rebuilt by
      `build_cotracker3_from_checkpoint` (config equal to `stom_config()`,
      outputs bit-equal);
+  4e. stom_train: STOM's tracker trained through `python -m
+     rga3_tpu_torch.tools.train_cotracker`'s `main` (no kernel of the port:
+     the counts reset before the phase and read after it must be 0): the
+     layered curriculum at the official CoTracker3 dims (STOM_TRAIN_ARGV:
+     bf16, batch 8 at 160x224, 4 training iterations, mixed textures) for
+     STOM_TRAIN_STEPS steps from a pool of STOM_POOL clips (the release run:
+     6000 steps, pool 512), its `save_cotracker3` file read back by
+     `load_cotracker3` (bit-equal to the weights rounded to f16), a
+     `--resume` from it (starting from those weights) for STOM_RESUME_STEPS;
+     the flat curriculum with CoTrackerLite at its default width for
+     STOM_LITE_STEPS; one layered step in f32 on the card against the CPU
+     from the trained weights and one batch at one refinement iteration
+     (loss, aux px errors and the parameters' moves gated; four iterations
+     logged); `default_tracker()` under `RGA3_STOM_TRACKER=<file>` on phase
+     4b's items; `bench_stom_synth` on the file (fixed and serving suites,
+     finite; a ground-truth oracle scores 0). Logged: host seconds a
+     `make_training_clip` at 160x224 (noise, photo), seconds a step cold and
+     warm, the wait on the pool and fresh clips a step, peak memory, the
+     busy share of a warm layered step and its top device ops;
   4c. serve: the demo server's service from `rga3_tpu_torch.serve`'s
      `build_service` (`--model_dir dummy --model_size 7b --int4 --draft_dir
      dummy --spec_k 4`: the int4 UniGR, int8 tower, SAM2 Hiera-L, random
@@ -257,6 +277,33 @@ REGION_SIZE = (720, 1280)
 REFER_FRAMES = 32
 VIP_SIZE = (768, 1024)
 VIP_TOKENS = 32
+# phase 4e: tracker training through the CLI. The layered run is STATUS.md's
+# official-dims recipe (bf16, batch 8 at 160x224, 4 training iterations,
+# mixed textures, 8 frames, 16 points); the cuts against the release run
+# (6000 steps, pool 512) are its steps, the resume's and the pool
+STOM_TRAIN_ARGV = ["--curriculum", "layered", "--arch", "cotracker3", "--preset", "official",
+                   "--size", "160", "--width", "224", "--bf16", "--train-iters", "4",
+                   "--batch", "8", "--frames", "8", "--points", "16", "--textures", "mixed"]
+STOM_TRAIN_STEPS = 30
+STOM_RESUME_STEPS = 10
+STOM_POOL = 32
+STOM_LITE_ARGV = ["--arch", "lite"]  # the flat curriculum at CoTrackerLite's default width
+STOM_LITE_STEPS = 30
+# the layered step in f32 on the card against the CPU (one refinement
+# iteration, batch STOM_CHECK_BATCH, two steps on one batch: the first at lr
+# 0, so the second moves each element by about lr x the sign of its
+# gradient): the loss within STOM_LOSS_RTOL, the aux px errors within
+# TRACK_TOL_PX, the parameters' moves within STOM_UPDATE_MEAN x lr in a
+# tensor's mean and apart by more than STOM_UPDATE_MAX x lr in at most a
+# share STOM_UPDATE_SHARE of the elements (an element whose gradient is
+# rounding noise takes a step of either sign; a zero-gradient element, a
+# conv bias before an instance norm or a key bias, moves within 1.5 x lr on
+# both devices)
+STOM_CHECK_BATCH = 2
+STOM_LOSS_RTOL = 1e-4
+STOM_UPDATE_MAX = 0.25
+STOM_UPDATE_MEAN = 5e-3
+STOM_UPDATE_SHARE = 1e-3
 # phase 3b: the VOS driver's MeViS tree (a 720p video) and its eval workers
 # (the card's host has 8 cores), the image driver's ReasonSeg images
 EVAL_FRAMES = 64
@@ -1565,30 +1612,6 @@ def stom_phase(chat4, frames, seed, card_line, read_path) -> dict:
 # --------------------------------------------------------------------------
 
 
-def save_tracker_npz(path: str, model) -> None:
-    """A self-describing CoTracker3 weight file (`keystr`-keyed f32 leaves
-    and a `__config__` entry) of `model`, which `default_tracker` loads from
-    an `RGA3_STOM_TRACKER` path ending in `.npz`."""
-    import dataclasses
-
-    import numpy as np
-    from rga3_tpu_torch.convert import flax_tree_from_torch
-
-    arrays = {}
-
-    def walk(node, keys):
-        for k, v in node.items():
-            if isinstance(v, dict):
-                walk(v, keys + (k,))
-            else:
-                arrays["['params']" + "".join(f"['{x}']" for x in keys + (k,))] = v
-
-    walk(flax_tree_from_torch(model), ())
-    arrays["__config__"] = np.frombuffer(
-        json.dumps(dataclasses.asdict(model.cfg)).encode(), np.uint8)
-    np.savez(path, **arrays)
-
-
 class RecordingChat:
     """A `UniGRChat` that records each `answer`'s prompt, frames, answer and
     forwards, and the token ids each generation returned."""
@@ -1635,7 +1658,7 @@ def region_qa_phase(chat4, tracker, frames, seed, card_line, read_path) -> dict:
     from rga3_tpu_torch.models.stom.convert import (
         build_cotracker3_from_checkpoint, export_torch_state_dict,
     )
-    from rga3_tpu_torch.models.stom.cotracker3 import CoTracker3Predictor
+    from rga3_tpu_torch.models.stom.cotracker3 import CoTracker3Predictor, save_cotracker3
     from rga3_tpu_torch.models.stom.stom import STOM
     from rga3_tpu_torch.models.stom.tracker import LKTracker
     from rga3_tpu_torch.ops.attention import reset_launches
@@ -1650,7 +1673,7 @@ def region_qa_phase(chat4, tracker, frames, seed, card_line, read_path) -> dict:
     model = (chat4.model, chat4.processor)
     per_forward = 7 * chat4.model.cfg.text.num_hidden_layers + 1
     npz = os.path.join(work, "cotracker3_phase4b.npz")
-    save_tracker_npz(npz, tracker)
+    save_cotracker3(npz, tracker, tracker.cfg)
     saved_choice = os.environ.get("RGA3_STOM_TRACKER")
     os.environ["RGA3_STOM_TRACKER"] = npz
 
@@ -1875,6 +1898,251 @@ def region_qa_phase(chat4, tracker, frames, seed, card_line, read_path) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return paths
+
+
+# --------------------------------------------------------------------------
+# STOM's tracker trained through its CLI, its weight file and its scorer
+# --------------------------------------------------------------------------
+
+
+def oracle_reports(n_points: int, t: int):
+    """The fixed and serving suites scored by a tracker that returns each
+    clip's ground truth (regenerated from the suite's own seeds, in its
+    order): every error must be 0."""
+    import numpy as np
+    from rga3_tpu_torch.models.stom import synth
+
+    def replay(clips):
+        it = iter(clips)
+        return lambda frames_u8, pts0, qidx: next(it)
+
+    fixed = [synth.make_synthetic_case(np.random.default_rng(1000 + s), case, t=t, h=64, w=64,
+                                       n_points=n_points)[2]
+             for case in synth.BENCH_CASES for s in (0, 1, 2)]
+    serving = [synth.make_training_clip(np.random.default_rng(5000 + s), t=t, h=160, w=224,
+                                        n_points=n_points, max_speed=10.0,
+                                        random_query_frame=False)[2] for s in range(8)]
+    return (synth.benchmark_tracker(replay(fixed), t=t, n_points=n_points),
+            synth.benchmark_tracker_serving(replay(serving), t=t, n_points=n_points))
+
+
+def report_numbers(report):
+    """(key, number) of every number in a (nested) report."""
+    for k, v in report.items():
+        if isinstance(v, dict):
+            yield from report_numbers(v)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield k, v
+
+
+def compare_steps(card, cpu, lr):
+    """Card against CPU parameter moves, card and cpu (before, after) state
+    dicts: (largest |difference| / lr and its tensor, the largest tensor
+    mean of |difference| / lr, the share of elements whose moves differ by
+    more than STOM_UPDATE_MAX x lr, the largest zero-gradient move / lr)."""
+    import numpy as np
+
+    worst, worst_name, worst_mean, beyond, total, zero_move = 0.0, "", 0.0, 0, 0, 0.0
+    for name, b in cpu[0].items():
+        got = card[1][name].cpu().numpy() - card[0][name].cpu().numpy()
+        want = cpu[1][name].numpy() - b.numpy()
+        zero = np.zeros(want.shape, bool)
+        if name.endswith("to_kv.bias"):
+            zero[:want.shape[0] // 2] = True
+        elif name.startswith("fnet.") and name.endswith(".bias") and "conv3" not in name:
+            zero[:] = True
+        zero_move = max(zero_move, np.abs(got[zero]).max(initial=0) / lr,
+                        np.abs(want[zero]).max(initial=0) / lr)
+        if zero.all():
+            continue
+        diff = np.abs(got[~zero] - want[~zero]) / lr
+        if diff.max() > worst:
+            worst, worst_name = float(diff.max()), name
+        worst_mean = max(worst_mean, float(diff.mean()))
+        beyond += int((diff > STOM_UPDATE_MAX).sum())
+        total += diff.size
+    return worst, worst_name, worst_mean, beyond / total, zero_move
+
+
+def stom_train_phase(frames, card_line, read_path, device="cuda") -> None:
+    """Phase 4e (see the module docstring): `train_cotracker.main` on the
+    layered curriculum at the official dims, a resume from its file, the
+    flat curriculum with CoTrackerLite at its default width; the layered
+    step in f32 on the card against the CPU; the file through
+    `load_cotracker3`, `default_tracker` and `bench_stom_synth`. Works under
+    build/stom_train/. No kernel of the port may launch."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.models.stom import synth
+    from rga3_tpu_torch.models.stom.cotracker3 import load_cotracker3
+    from rga3_tpu_torch.models.stom.stom import STOM, default_tracker
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.tools import bench_stom_synth
+    from rga3_tpu_torch.tools import train_cotracker as tc
+
+    work = os.path.join(HERE, "build", "stom_train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    args = tc.parse_args(STOM_TRAIN_ARGV)
+    h, w = tc.layered_config(args).model_resolution
+    rng = np.random.default_rng(0)
+    for tex in ("noise", "photo"):
+        t1 = time.perf_counter()
+        for _ in range(4):
+            synth.make_training_clip(rng, t=args.frames, h=h, w=w, n_points=args.points,
+                                     texture=tex)
+        log(f"stom_train: make_training_clip at {h}x{w}, {args.frames} frames, {tex}: "
+            f"{(time.perf_counter() - t1) / 4:.4f} s a clip on the host (one thread); "
+            f"{card_line}")
+
+    def summary(name, run, n_steps):
+        steps = run["step_s"]
+        warm = statistics.median(steps[1:]) if len(steps) > 1 else float("nan")
+        extra = ""
+        if "wait_s" in run:
+            extra = (f"; wait on the pool: first {run['wait_s'][0]:.3f} s, then median "
+                     f"{statistics.median(run['wait_s'][1:]):.4f} s; fresh clips a step: "
+                     f"median {statistics.median(run['fresh'][1:])}, {sum(run['fresh'])} in all")
+        log(f"stom_train {name}: {n_steps} steps; seconds a step cold {steps[0]:.3f}, warm "
+            f"median {warm:.4f} (min {min(steps[1:]):.4f}, max {max(steps[1:]):.4f}); loss "
+            f"first {run['losses'][0]:.4f}, last {run['losses'][-1]:.4f}{extra}; "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f} GiB above the "
+            f"{resident / 2**30:.2f} GiB resident at the phase's start (the phase-3 UniGR); "
+            f"{card_line}")
+        if len(run["losses"]) != n_steps or not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"stom_train {name}: losses {run['losses']}")
+
+    # -- the layered curriculum at the official dims, then a resume from its file
+    ct3 = os.path.join(work, "ct3_official.npz")
+    base = [*STOM_TRAIN_ARGV, "--pool-size", str(STOM_POOL), "--save-every", "0",
+            "--device", device]
+    log(f"stom_train: layered run {' '.join(STOM_TRAIN_ARGV)}; cut against the release run "
+        f"(6000 steps, pool 512): {STOM_TRAIN_STEPS} steps, pool {STOM_POOL}, then a resume "
+        f"of {STOM_RESUME_STEPS} steps")
+    t1 = time.perf_counter()
+    run1 = tc.main([*base, "--steps", str(STOM_TRAIN_STEPS), "--out", ct3])
+    torch.cuda.synchronize()
+    log(f"stom_train layered: {time.perf_counter() - t1:.2f} s with the pool's fill and the "
+        f"fixed suite; report {json.dumps(run1['report'])}")
+    summary("layered (official dims, bf16, batch 8)", run1, STOM_TRAIN_STEPS)
+    model1 = run1["model"]
+    file_model, file_cfg = load_cotracker3(ct3, device=device)
+    f16 = {k: v.half().float() for k, v in model1.state_dict().items()}
+    same = all(torch.equal(v, f16[k]) for k, v in file_model.state_dict().items())
+    log(f"stom_train: {ct3} ({os.path.getsize(ct3) / 1e6:.1f} MB, f16) read back by "
+        f"load_cotracker3: config equal {file_cfg == run1['cfg']}, weights bit-equal to the "
+        f"model's rounded to f16: {same}")
+    if file_cfg != run1["cfg"] or not same:
+        raise AssertionError("stom_train: the weight file does not hold the trained model")
+    # the device alone: aggregating a step's ~15k host launches takes ~20 s
+    busy = device_breakdown(lambda: run1["step"](*tc.to_device(device, *run1["batch"])),
+                            host=False)
+    warm = statistics.median(run1["step_s"][1:])
+    log(f"profile (a warm layered step, batch 8): device busy in the traced step / the untraced "
+        f"warm median step: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}; "
+        f"{card_line}")
+    resumed = tc.build_layered(tc.parse_args([*base, "--resume", ct3]))[0]
+    same = all(torch.equal(v, f16[k]) for k, v in resumed.state_dict().items())
+    if not same:
+        raise AssertionError("stom_train: --resume did not start from the file")
+    del resumed
+    run2 = tc.main([*base, "--steps", str(STOM_RESUME_STEPS), "--resume", ct3,
+                    "--out", os.path.join(work, "ct3_resumed.npz")])
+    summary("layered, resumed from its file (starts from the f16 weights: checked)", run2,
+            STOM_RESUME_STEPS)
+
+    # -- the flat curriculum with CoTrackerLite at its default width
+    lite = os.path.join(work, "lite.npz")
+    run3 = tc.main([*STOM_LITE_ARGV, "--steps", str(STOM_LITE_STEPS), "--out", lite,
+                    "--device", device])
+    summary("flat lite (dim 256, 8 heads, 3 block pairs, 4 scales, 4 iterations, 64x64)",
+            run3, STOM_LITE_STEPS)
+    log(f"stom_train flat lite: held-out {run3['held_out_px']:.3f} px, stay-put "
+        f"{run3['stayput_px']:.3f} px")
+
+    # -- one layered step in f32 on the card against the CPU, same weights and
+    # batch, at one refinement iteration (four logged)
+    f32_argv = [a for a in STOM_TRAIN_ARGV if a != "--bf16"]
+    batch = tuple(x[:STOM_CHECK_BATCH] for x in run1["batch"])
+    sd = {k: v.detach().cpu().clone() for k, v in model1.state_dict().items()}
+    for iters in (1, 4):
+        check = tc.parse_args([*f32_argv, "--train-iters", str(iters), "--steps", "10",
+                               "--batch", str(STOM_CHECK_BATCH)])
+        res = {}
+        for dev in (device, "cpu"):
+            model, cfg, opt, step = tc.build_layered(check, dev)
+            model.load_state_dict(sd)
+            before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            t1 = time.perf_counter()
+            outs = [step(*tc.to_device(dev, *batch)) for _ in range(2 if iters == 1 else 1)]
+            losses = [float(o[0]) for o in outs]
+            aux = [float(a) for a in outs[0][1]]
+            res[dev] = (losses, aux, before, {k: v.detach() for k, v in model.state_dict().items()},
+                        time.perf_counter() - t1, opt.schedule(1))
+            del model, opt, step
+        (gl, ga, gb, gaft, gs, lr), (cl, ca, cb, caft, cs, _) = res[device], res["cpu"]
+        loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gl, cl))
+        px = max(abs(g - c) for g, c in zip(ga, ca))
+        msg = (f"stom_train f32 layered step, card vs CPU, {iters} iteration(s), batch "
+               f"{STOM_CHECK_BATCH}: loss {gl} vs {cl} (rel {loss_rel:.3e}), vis_px / hid_px "
+               f"{ga} vs {ca} (max diff {px:.3e} px); card {gs:.2f} s, CPU {cs:.2f} s")
+        if iters == 1:
+            worst, worst_name, worst_mean, share, zero_move = compare_steps(
+                (gb, gaft), (cb, caft), lr)
+            log(f"{msg}; after the second step (lr {lr:.3e}) the parameters' moves differ by "
+                f"at most {worst:.3e} x lr ({worst_name}), a tensor's mean by {worst_mean:.3e} "
+                f"x lr (tol {STOM_UPDATE_MEAN}), by more than {STOM_UPDATE_MAX} x lr in a share "
+                f"{share:.3e} of the elements (tol {STOM_UPDATE_SHARE}); zero-gradient moves <= "
+                f"{zero_move:.3f} x lr (tol 1.5); loss tol {STOM_LOSS_RTOL}, px tol "
+                f"{TRACK_TOL_PX}; {card_line}")
+            if (loss_rel > STOM_LOSS_RTOL or px > TRACK_TOL_PX or share > STOM_UPDATE_SHARE
+                    or worst_mean > STOM_UPDATE_MEAN or zero_move > 1.5):
+                raise AssertionError("stom_train: the card's f32 step disagrees with the CPU's")
+        else:
+            log(f"{msg} (logged, not gated: the refinement is chaotic past one iteration)")
+
+    # -- the file as STOM's tracker, and scored
+    saved_choice = os.environ.get("RGA3_STOM_TRACKER")
+    os.environ["RGA3_STOM_TRACKER"] = ct3
+    try:
+        tracker = default_tracker()
+        for it in region_items(frames):
+            mask = STOM._query_mask(it["vip_overlay"])
+            t1 = time.perf_counter()
+            tracks, vis = tracker.track(list(it["frames"]), mask, it["key_idx"])
+            log(f"stom_train default_tracker() under RGA3_STOM_TRACKER={ct3}, item {it['id']}: "
+                f"tracks {tracks.shape}, visible {vis.mean():.3f}, "
+                f"{time.perf_counter() - t1:.3f} s")
+            if tracks.shape[:1] != (len(frames),) or not tracks.shape[1] or \
+                    not np.isfinite(tracks).all():
+                raise AssertionError(f"stom_train: default_tracker tracks {tracks.shape}")
+    finally:
+        if saved_choice is None:
+            os.environ.pop("RGA3_STOM_TRACKER", None)
+        else:
+            os.environ["RGA3_STOM_TRACKER"] = saved_choice
+    oracle = dict(zip(("fixed", "serving"), oracle_reports(16, 8)))
+    for suite in ("fixed", "serving"):
+        t1 = time.perf_counter()
+        rep = bench_stom_synth.main(["--weights", ct3, "--suite", suite, "--device", device])
+        log(f"stom_train bench_stom_synth --suite {suite} on {os.path.basename(ct3)}: "
+            f"{time.perf_counter() - t1:.2f} s; ground-truth oracle {json.dumps(oracle[suite])}")
+        errs = [v for k, v in report_numbers(oracle[suite])
+                if k.endswith("px_err") and not k.startswith("stayput")]
+        finite = all(math.isfinite(v) for _, v in report_numbers(rep))
+        if rep["backend"] != "shipped" or not finite or not errs or any(errs):
+            raise AssertionError(f"stom_train bench_stom_synth {suite}: {rep}, oracle {errs}")
+    launches = {k: v for k, v in read_path()[0].items() if v}
+    log(f"stom_train: port kernel launches in the phase: {launches or 'none'}")
+    if launches:
+        raise AssertionError(f"stom_train: the tracker's training launched {launches}")
+    del run1, run2, run3, model1, file_model
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -3468,6 +3736,11 @@ def main() -> int:
     del chat4, tracker
     torch.cuda.empty_cache()
     log(f"phase region_qa: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 4e. STOM's tracker trained through its CLI (no kernel of the port)
+    t0 = time.perf_counter()
+    stom_train_phase(frames, card_line, read_path)
+    log(f"phase stom_train: {time.perf_counter() - t0:.2f} s")
 
     # ---- 4c. the demo server: int4 UniGR + 3B draft, driven over HTTP
     t0 = time.perf_counter()

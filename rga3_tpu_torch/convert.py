@@ -5,7 +5,12 @@ The port's submodules carry the flax names (`blocks_3`, `attn_qkv`,
 `layers_0`, ...), so a path `a/b/c/kernel` becomes the key `a.b.c.weight`
 and only the leaves change:
 
-  * Dense `kernel (in, out)` -> `weight (out, in)`;
+  * Dense `kernel (in, out)` -> `weight (out, in)`; the DenseGeneral
+    kernels of flax's `MultiHeadDotProductAttention` flattened to one:
+    `query` / `key` / `value` `kernel (in, heads, head_dim)` -> `weight
+    (heads * head_dim, in)` and `bias (heads, head_dim)` -> `(heads *
+    head_dim,)`, `out` `kernel (heads, head_dim, out)` -> `weight (out,
+    heads * head_dim)`;
   * Conv `kernel` HWIO -> OIHW; ConvTranspose `kernel (kh, kw, in, out)` ->
     `weight (in, out, kh, kw)` with the taps flipped, which is what
     torch's `conv_transpose2d` computes with flax's kernel;
@@ -22,16 +27,20 @@ and only the leaves change:
 Every subtree maps: a key the port lacks makes
 `load_state_dict(strict=True)` fail. `flax_tree_from_torch` is the
 inverse, from a module (whose types tell a Dense kernel from an Embed
-table and a conv from a transposed conv).
+table and a conv from a transposed conv; a port module that is not a
+`torch.nn` layer names its flax layout in a `flax_kind` attribute:
+"dense", "conv", "norm", or "heads_in" / "heads_out" with `heads`).
 `load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
-exporter writes, and `load_keystr_npz` the self-describing `keystr`-keyed
-npz of its CoTracker3 weights, with numpy alone.
+exporter writes, `load_keystr_npz` the `keystr`-keyed npz of its tracker
+weights (with or without a `__config__` entry), with numpy alone, and
+`save_keystr_npz` writes one.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +63,8 @@ def _flatten(tree: Tree, prefix=()) -> Dict[tuple, np.ndarray]:
 
 
 QUANT_LEAVES = ("kernel_q", "kernel_q4", "scale_g")
+# flax's MultiHeadDotProductAttention: the DenseGeneral projections
+HEAD_PROJECTIONS = ("query", "key", "value")
 
 
 def _leaf(path: tuple, x: np.ndarray, quantized: bool = False):
@@ -70,6 +81,10 @@ def _leaf(path: tuple, x: np.ndarray, quantized: bool = False):
     if name == "kernel":
         if x.ndim == 2:
             return "weight", x.T
+        if x.ndim == 3 and parent in HEAD_PROJECTIONS:
+            return "weight", x.reshape(x.shape[0], -1).T
+        if x.ndim == 3 and parent == "out":
+            return "weight", x.reshape(-1, x.shape[-1]).T
         if x.ndim == 4 and parent in CONV_TRANSPOSE:
             return "weight", x[::-1, ::-1].transpose(2, 3, 0, 1)
         if x.ndim == 4:
@@ -79,6 +94,8 @@ def _leaf(path: tuple, x: np.ndarray, quantized: bool = False):
         return "weight", x
     if name in NCHW_PARAMS:
         return name, x.transpose(0, 3, 1, 2)
+    if name == "bias" and x.ndim == 2 and parent in HEAD_PROJECTIONS:
+        return name, x.reshape(-1)
     return name, x
 
 
@@ -112,35 +129,45 @@ def torch_state_dict_from_flax(
 FLAX_SCALE_NORMS = re.compile(r"(^|\.)image_encoder\.trunk\.blocks_\d+\.norm[12]$")
 
 
-def _flax_layout(module: torch.nn.Module, parent: str, name: str, ndim: int):
+def _flax_layout(module: torch.nn.Module, parent: str, name: str, shape: Tuple[int, ...]):
     """(flax leaf name, the permutation of the torch dims into flax's or
-    None, whether flax's first two dims are flipped) of state-dict entry
-    `name` of `module` (at path `parent`): the inverse of `_leaf`."""
+    None, whether flax's first two dims are flipped, the flax shape) of
+    state-dict entry `name` of `module` (at path `parent`) with torch shape
+    `shape`: the inverse of `_leaf`."""
+    kind = getattr(module, "flax_kind", None)
+    leaf, perm, flip = name, None, False
     if name == "weight" and isinstance(module, torch.nn.Embedding):
-        return "embedding", None, False
-    if name == "weight" and isinstance(module, torch.nn.Linear):
-        return "kernel", (1, 0), False
-    if name == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
-        return "kernel", (2, 3, 0, 1), True
-    if name == "weight" and isinstance(module, torch.nn.Conv2d):
-        return "kernel", (2, 3, 1, 0), False
-    if name == "weight" and ndim == 1 and FLAX_SCALE_NORMS.search(parent):
-        return "scale", None, False
-    if name in NCHW_PARAMS:
-        return name, (0, 2, 3, 1), False
-    return name, None, False
+        leaf = "embedding"
+    elif name == "weight" and (isinstance(module, torch.nn.Linear)
+                               or kind in ("dense", "heads_in", "heads_out")):
+        leaf, perm = "kernel", (1, 0)
+    elif name == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
+        leaf, perm, flip = "kernel", (2, 3, 0, 1), True
+    elif name == "weight" and (isinstance(module, torch.nn.Conv2d) or kind == "conv"):
+        leaf, perm = "kernel", (2, 3, 1, 0)
+    elif name == "weight" and len(shape) == 1 and (
+            kind == "norm" or FLAX_SCALE_NORMS.search(parent)):
+        leaf = "scale"
+    elif name in NCHW_PARAMS:
+        perm = (0, 2, 3, 1)
+    fshape = tuple(shape[i] for i in perm) if perm is not None else tuple(shape)
+    if kind == "heads_in":  # (in, H * hd) / (H * hd,) -> (in, H, hd) / (H, hd)
+        fshape = fshape[:-1] + (module.heads, fshape[-1] // module.heads)
+    elif kind == "heads_out" and leaf == "kernel":  # (H * hd, out) -> (H, hd, out)
+        fshape = (module.heads, fshape[0] // module.heads, fshape[1])
+    return leaf, perm, flip, fshape
 
 
 def _flax_leaf(module: torch.nn.Module, parent: str, name: str, t: torch.Tensor):
     """(flax leaf name, numpy array in flax layout) for one state-dict
     entry `name` of `module` (at path `parent`): the inverse of `_leaf`."""
-    leaf, perm, flip = _flax_layout(module, parent, name, t.dim())
+    leaf, perm, flip, fshape = _flax_layout(module, parent, name, tuple(t.shape))
     x = t.detach().cpu()
     if perm is not None:
         x = x.permute(*perm)
     if flip:
         x = x.flip(0, 1)
-    return leaf, x.numpy()
+    return leaf, x.reshape(fshape).numpy()
 
 
 def flax_path_and_shape(model: torch.nn.Module, key: str, shape) -> Tuple[tuple, tuple]:
@@ -148,8 +175,7 @@ def flax_path_and_shape(model: torch.nn.Module, key: str, shape) -> Tuple[tuple,
     state-dict entry `key` of `model` with torch shape `shape`."""
     parent, _, name = key.rpartition(".")
     module = model.get_submodule(parent) if parent else model
-    leaf, perm, _ = _flax_layout(module, parent, name, len(shape))
-    fshape = tuple(shape[i] for i in perm) if perm is not None else tuple(shape)
+    leaf, _, _, fshape = _flax_layout(module, parent, name, tuple(shape))
     return tuple(parent.split(".") if parent else ()) + (leaf,), fshape
 
 
@@ -192,16 +218,17 @@ def load_params_npz(path: str) -> Dict[str, object]:
     return tree
 
 
-def load_keystr_npz(path: str) -> Tuple[Dict[str, object], Dict[str, Any]]:
+def load_keystr_npz(path: str) -> Tuple[Dict[str, object], Optional[Dict[str, Any]]]:
     """An npz keyed by `jax.tree_util.keystr` paths
-    (`"['params']['fnet']['conv1']['kernel']"`) with a `__config__` JSON
-    entry -> (nested f32 numpy tree, the config dict); f16 leaves are read
-    as f32."""
+    (`"['params']['fnet']['conv1']['kernel']"`), with or without a
+    `__config__` JSON entry -> (nested f32 numpy tree, the config dict or
+    None); f16 leaves are read as f32."""
     tree: Dict[str, object] = {}
+    config = None
     with np.load(path) as z:
-        config = json.loads(bytes(z["__config__"].tobytes()).decode())
         for key in z.files:
             if key == "__config__":
+                config = json.loads(bytes(z["__config__"].tobytes()).decode())
                 continue
             parts = re.findall(r"\['([^']*)'\]", key)
             if not parts or "".join(f"['{p}']" for p in parts) != key:
@@ -214,3 +241,26 @@ def load_keystr_npz(path: str) -> Tuple[Dict[str, object], Dict[str, Any]]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = arr
     return tree, config
+
+
+def save_keystr_npz(path: str, model_or_tree, config: Optional[Dict[str, Any]] = None,
+                    dtype=np.float32) -> None:
+    """A port module's parameters (`flax_tree_from_torch`'s layout), or a
+    nested numpy flax tree (optionally under "params"), as the JAX
+    package's flat npz keyed by `jax.tree_util.keystr` paths under
+    "params": f32 leaves stored as `dtype`, and `config` as a `__config__`
+    JSON entry when given."""
+    if isinstance(model_or_tree, torch.nn.Module):
+        tree = flax_tree_from_torch(model_or_tree)
+    else:
+        tree = model_or_tree
+        if set(tree.keys()) == {"params"}:
+            tree = tree["params"]
+    arrays = {}
+    for leaf_path, arr in _flatten(tree).items():
+        key = "".join(f"['{p}']" for p in ("params",) + leaf_path)
+        arrays[key] = arr.astype(dtype) if arr.dtype == np.float32 else arr
+    if config is not None:
+        arrays["__config__"] = np.frombuffer(json.dumps(config).encode(), np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)

@@ -8,7 +8,9 @@ learned virtual tracks) refining the tracks for `iters` iterations over the
 whole clip at once. Submodules keep the flax names (`fnet.layer1_0.conv1`,
 `updateformer.time_blocks_0.attn.to_q`, `virual_tracks`, ...), so the JAX
 package's weight files load through `convert.load_keystr_npz` and
-`convert.torch_state_dict_from_flax`.
+`convert.torch_state_dict_from_flax`, and `save_cotracker3` writes files
+the JAX package reads (`Dense`, `Conv` and `LayerNorm` name their flax
+layouts for `convert.flax_tree_from_torch`).
 
 Convolutions run in NCHW, dense layers on (..., C). There is no Pallas
 kernel in the reference: every op here is a plain torch op, at the rounding
@@ -34,7 +36,10 @@ points of the reference's `compute_dtype`:
 
 `CoTracker3Offline.forward` takes a batch of clips, (B, T, H, W, 3) frames
 and (B, N, 3) queries, or one clip without the batch axis; the predictor's
-`track_batch` runs B clips in one forward where the reference vmaps.
+`track_batch` runs B clips in one forward where the reference vmaps. As in
+the reference, each refinement iteration starts from the estimates with
+their gradient stopped, so training supervises every iteration on its own
+update (`tools/train_cotracker.py`).
 """
 from __future__ import annotations
 
@@ -127,6 +132,8 @@ def _compute_dtype(cfg: CoTracker3Config) -> Optional[torch.dtype]:
 class Dense(nn.Module):
     """flax `nn.Dense` with its `dtype`: weight (out, in), bias (out,)."""
 
+    flax_kind = "dense"  # the weight bridge's layout (`convert._flax_layout`)
+
     def __init__(self, d_in: int, d_out: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
@@ -138,10 +145,21 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
-class Conv(nn.Module):
-    """flax `nn.Conv` (square kernel, symmetric padding) on NCHW."""
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """flax `padding="SAME"` on one axis: (low, high), the extra pixel high
+    (so a 7x7 stride-2 conv on an even size pads (2, 3), a 3x3 one (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1, padding: int = 0,
+
+class Conv(nn.Module):
+    """flax `nn.Conv` (square kernel) on NCHW: `padding` an int (symmetric)
+    or "same" (flax's "SAME", asymmetric where flax pads asymmetrically)."""
+
+    flax_kind = "conv"
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1, padding=0,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k))
@@ -150,7 +168,12 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
+        x, pad = x.to(dt), self.padding
+        if pad == "same":
+            k = self.weight.shape[-1]
+            (top, bottom), (left, right) = (_same_pads(n, k, self.stride) for n in x.shape[-2:])
+            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        y = F.conv2d(x, self.weight.to(dt), None, self.stride, pad)
         return y + self.bias.to(dt)[:, None, None]
 
 
@@ -300,6 +323,8 @@ def _pre_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm` with no dtype: f32 output, statistics by
     E[x^2] - E[x]^2 (flax's fast variance), scale and bias."""
+
+    flax_kind = "norm"
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -490,6 +515,14 @@ def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
     return s / 4
 
 
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel initialiser in place: normal with variance 1 /
+    fan_in truncated at two standard deviations (fan_in: the elements of a
+    weight's row, (out, in, ...) in torch's layout)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 class CoTracker3Offline(nn.Module):
     """Whole-clip point tracker.
 
@@ -520,9 +553,7 @@ class CoTracker3Offline(nn.Module):
             elif name.endswith("norm_context.weight"):
                 prm.fill_(1.0)
             elif prm.dim() >= 2:
-                fan_in = prm[0].numel()
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(prm, 0.0, std, -2 * std, 2 * std, generator=generator)
+                lecun_normal_(prm, generator)
             else:
                 prm.zero_()
 
@@ -577,6 +608,9 @@ class CoTracker3Offline(nn.Module):
         conf = torch.zeros_like(vis)
         all_coords = []
         for _ in range(c.iters):
+            # the reference stops the gradient through the estimates here:
+            # each iteration is supervised on its own refinement
+            coords = coords.detach()
             corr_embs = []
             for lvl, fm in enumerate(pyramid):
                 neigh = _stencil_gather(fm, frame, coords / (2.0 ** lvl), c.corr_radius)
@@ -614,13 +648,26 @@ def config_from_dict(raw: Dict) -> CoTracker3Config:
     return CoTracker3Config(**raw)
 
 
+def save_cotracker3(path: str, model_or_tree, cfg: CoTracker3Config) -> None:
+    """A self-describing weight file (the JAX package's `save_cotracker3`):
+    flat npz keyed by flax `keystr` paths, f32 leaves stored as f16, and a
+    `__config__` JSON entry. `model_or_tree` is a CoTracker3Offline or its
+    nested numpy flax tree."""
+    from ...convert import save_keystr_npz
+
+    save_keystr_npz(path, model_or_tree, dataclasses.asdict(cfg), np.float16)
+
+
 def load_cotracker3(path: str, device: DeviceLike = None):
     """A self-describing weight file (flax `keystr` keys + `__config__`) ->
-    (CoTracker3Offline on the device, eval mode; its CoTracker3Config)."""
+    (CoTracker3Offline on the device, eval mode; its CoTracker3Config).
+    Raises KeyError for a file without a config."""
     from ...convert import load_keystr_npz, torch_state_dict_from_flax
 
     dev = resolve_device(device)
     tree, raw = load_keystr_npz(path)
+    if raw is None:
+        raise KeyError(f"{path}: no __config__ entry (not a save_cotracker3 file)")
     cfg = config_from_dict(raw)
     model = CoTracker3Offline(cfg)
     model.load_state_dict(torch_state_dict_from_flax(tree), strict=True)

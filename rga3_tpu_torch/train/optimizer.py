@@ -57,35 +57,47 @@ def trainable_mask(model: nn.Module,
     return mask
 
 
-def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
-    """Linear warmup from 0 over `warmup_ratio` of the steps, then cosine
-    decay to a floor of `min_lr_ratio * lr` (f32, as optax computes it)."""
-    total = cfg.epochs * cfg.steps_per_epoch
-    warmup = max(1, int(total * cfg.warmup_ratio))
-    decay = max(1, total - warmup)
+def warmup_cosine_schedule(lr: float, warmup: int, decay: int,
+                           floor_ratio: float = 0.0) -> Callable[[int], float]:
+    """optax's `warmup_cosine_decay_schedule(0, lr, warmup, warmup + decay,
+    floor_ratio * lr)` (f32, as optax computes it): a linear warmup from 0
+    over `warmup` counts, then a cosine decay over `decay` counts to
+    `floor_ratio * lr`."""
+    if decay <= 0:
+        raise ValueError(f"the cosine decay needs a positive length, got {decay}")
     f32 = torch.float32
 
     def schedule(count: int) -> float:
         if count < warmup:
             frac = 1.0 - torch.tensor(min(max(count, 0), warmup), dtype=f32) / warmup
-            return float((0.0 - cfg.lr) * frac + cfg.lr)
+            return float((0.0 - lr) * frac + lr)
         c = torch.tensor(min(count - warmup, decay), dtype=f32)
         cosine = 0.5 * (1 + torch.cos(torch.tensor(math.pi, dtype=f32) * c / decay))
-        return float(cfg.lr * ((1 - cfg.min_lr_ratio) * cosine + cfg.min_lr_ratio))
+        return float(lr * ((1 - floor_ratio) * cosine + floor_ratio))
 
     return schedule
+
+
+def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Linear warmup from 0 over `warmup_ratio` of the steps, then cosine
+    decay to a floor of `min_lr_ratio * lr` (f32, as optax computes it)."""
+    total = cfg.epochs * cfg.steps_per_epoch
+    warmup = max(1, int(total * cfg.warmup_ratio))
+    return warmup_cosine_schedule(cfg.lr, warmup, max(1, total - warmup), cfg.min_lr_ratio)
 
 
 class MaskedAdamW:
     """AdamW over the trainable parameters of `model` (those that require
     grad): clip by global norm, Adam moments, decoupled weight decay,
-    `-lr(count)`, added to the parameter (or its master) in f32 and rounded
-    to its dtype. `state` holds `count`, `mu`, `nu` and `master`."""
+    `-lr(count)` (`lr_schedule(cfg)` unless a `schedule` is given), added to
+    the parameter (or its master) in f32 and rounded to its dtype. `state`
+    holds `count`, `mu`, `nu` and `master`."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
-                 master_init: Dict[str, torch.Tensor] = None):
+                 master_init: Dict[str, torch.Tensor] = None,
+                 schedule: Callable[[int], float] = None):
         self.cfg = cfg
-        self.schedule = lr_schedule(cfg)
+        self.schedule = schedule or lr_schedule(cfg)
         self.mu_dtype = DTYPES[cfg.adam_mu_dtype]
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.count = 0
