@@ -58,6 +58,22 @@ class SegHeadConfig(ConfigBase):
 
 
 @dataclass(frozen=True)
+class MeshConfig(ConfigBase):
+    """The ranks' mesh, the JAX package's fields: `data` splits the batch
+    (and may cross nodes), `fsdp` shards the trainable state and the
+    gradients (ZeRO-2, inside one node), `tensor` is the LM's tensor axis
+    (not ported: `parallel.make_mesh` raises for tensor > 1)."""
+
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, str, str]:
+        return ("data", "fsdp", "tensor")
+
+
+@dataclass(frozen=True)
 class TrainConfig(ConfigBase):
     """Training hyperparameters, the JAX package's fields and defaults
     (AdamW, warmup then cosine to a floor, clipping, LoRA, the trainable

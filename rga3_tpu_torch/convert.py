@@ -33,7 +33,9 @@ table and a conv from a transposed conv; a port module that is not a
 `load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
 exporter writes, `load_keystr_npz` the `keystr`-keyed npz of its tracker
 weights (with or without a `__config__` entry), with numpy alone, and
-`save_keystr_npz` writes one.
+`save_keystr_npz` writes one. `load_optax_state` carries the JAX
+package's optimizer state (its optax AdamW's moments and counts, as numpy)
+into the port's `MaskedAdamW`.
 """
 from __future__ import annotations
 
@@ -264,3 +266,71 @@ def save_keystr_npz(path: str, model_or_tree, config: Optional[Dict[str, Any]] =
         arrays["__config__"] = np.frombuffer(json.dumps(config).encode(), np.uint8)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
+
+
+def _drop_empty(tree):
+    """A nested tree without its masked-out leaves: None, or optax's
+    `MaskedNode` (an empty named tuple)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            sub = _drop_empty(v)
+            if sub:
+                out[k] = sub
+        elif v is not None and not (isinstance(v, tuple) and len(v) == 0):
+            out[k] = v
+    return out
+
+
+def _moment_tensors(tree: Tree) -> Dict[str, np.ndarray]:
+    """{torch parameter name: f32 array in torch layout} of a moment tree in
+    the parameters' flax layout (optionally under "params")."""
+    tree = _drop_empty(tree)
+    if set(tree.keys()) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, x in _flatten(tree).items():
+        name, y = _leaf(path, np.asarray(x).astype(np.float32))
+        out[".".join(path[:-1] + (name,))] = np.ascontiguousarray(y)
+    return out
+
+
+@torch.no_grad()
+def load_optax_state(opt, state: Mapping[str, Any]) -> None:
+    """Carry the JAX package's optimizer state into `opt` (a
+    `train.optimizer.MaskedAdamW` over the same trainable parameters), in
+    place. `state` holds, as numpy, the "train" branch of its
+    `multi_transform`: {"train": {"mu": tree, "nu": tree, "count": the
+    `ScaleByAdamState` count, "schedule_count": the `ScaleByScheduleState`
+    count}}, the trees in the parameters' flax layout (frozen leaves None,
+    optax's empty `MaskedNode`, or left out). `mu` is cast to the optimizer's `adam_mu_dtype` (exact from a
+    bfloat16 state) and `nu` to its parameters' dtype; each rank takes its
+    blocks where the optimizer shards a tensor. The parameters themselves
+    come through `torch_state_dict_from_flax`. Raises KeyError for a missing
+    branch or entry, and ValueError when the names, the shapes or the two
+    counts disagree."""
+    if "train" not in state:
+        raise KeyError(f"the optax state has no 'train' branch (got {sorted(state)})")
+    train = state["train"]
+    for key in ("mu", "nu", "count", "schedule_count"):
+        if key not in train:
+            raise KeyError(f"the optax state's 'train' branch has no {key!r}")
+    count, sched = int(np.asarray(train["count"])), int(np.asarray(train["schedule_count"]))
+    if count != sched:
+        raise ValueError(f"Adam's count {count} and the schedule's {sched} differ: the port "
+                         "keeps one count")
+    moments = {"mu": _moment_tensors(train["mu"]), "nu": _moment_tensors(train["nu"])}
+    for kind, tensors in moments.items():
+        if set(tensors) != set(opt.params):
+            diff = sorted(set(tensors) ^ set(opt.params))[:5]
+            raise ValueError(f"the optax {kind} and the trainable parameters differ: {diff}")
+        for name, x in tensors.items():
+            if tuple(x.shape) != tuple(opt.params[name].shape):
+                raise ValueError(f"{kind} of {name}: shape {tuple(x.shape)} in the optax state, "
+                                 f"{tuple(opt.params[name].shape)} in the model")
+    for kind, tensors in moments.items():
+        target = getattr(opt, kind)
+        for name, x in tensors.items():
+            t = torch.from_numpy(x)
+            target[name].copy_(opt.shard(name, t).to(target[name].dtype))
+    opt.count = count

@@ -48,6 +48,7 @@
 // (4096 keys each, 64 tiles), so a call costs what its valid keys cost; the
 // 64 pointer keys (28736 = 449 x 64) form one tile masked per key.
 #include "attention_mma.cuh"
+#include "device.cuh"  // use_device, PerDevice
 
 namespace rga3 {
 namespace {
@@ -209,19 +210,21 @@ cudaError_t launch(const FlashParams& p, int batch, cudaStream_t stream) {
 }  // namespace
 }  // namespace rga3
 
-// Plain C entry point for ctypes. Strides are in elements; q, k and v must
+// Plain C entry point for ctypes, on CUDA device `device` (device.cuh).
+// Strides are in elements; q, k and v must
 // have 16-byte aligned rows (data pointers 16-byte aligned, strides
 // multiples of 8), which the wrapper checks; `lse` may be null. Returns a
 // cudaError_t (0 on success); cudaErrorInvalidValue for an unsupported head
 // dim.
 extern "C" int rga3_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, const void* q_seg,
+    int device, const void* q, const void* k, const void* v, void* o, const void* q_seg,
     const void* kv_seg, void* lse, int batch, int lq, int lk, int heads, int kv_heads,
     int head_dim, int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb,
     int64_t k_sl, int64_t k_sh, int64_t v_sb, int64_t v_sl, int64_t v_sh,
     int64_t o_sb, int64_t o_sl, int64_t o_sh, int causal, float scale,
     void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   if (heads % kv_heads != 0 || lq <= 0 || lk <= 0) return cudaErrorInvalidValue;
   FlashParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);

@@ -54,6 +54,7 @@
 // below the q tile's last row. Rows with no valid key get zero dQ and add
 // nothing to dK / dV (P is zero on every masked pair, by a select).
 #include "attention_mma.cuh"
+#include "device.cuh"  // use_device, PerDevice
 
 namespace rga3 {
 namespace {
@@ -549,14 +550,15 @@ extern "C" int64_t rga3_flash_attention_bwd_scratch_words(int batch, int lq, int
   return delta_words(batch, lq, heads) + 2 * (int64_t)chunks * batch * heads * lk * head_dim;
 }
 
-// Plain C entry point for ctypes. Strides are in elements, each tensor's
+// Plain C entry point for ctypes, on CUDA device `device` (device.cuh).
+// Strides are in elements, each tensor's
 // head dim contiguous; q, k, v, o and do must have 16-byte aligned rows
 // (which the wrapper checks); `delta` is f32 scratch of
 // rga3_flash_attention_bwd_scratch_words(...) words; the segment ids may be
 // null. Returns a cudaError_t (0 on success); cudaErrorInvalidValue for an
 // unsupported head dim.
 extern "C" int rga3_flash_attention_bwd_bf16(
-    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    int device, const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* dk, void* dv, const void* q_seg,
     const void* kv_seg, int batch, int lq, int lk, int heads, int kv_heads, int head_dim,
     int64_t q_sb, int64_t q_sl, int64_t q_sh, int64_t k_sb, int64_t k_sl, int64_t k_sh,
@@ -565,6 +567,7 @@ extern "C" int rga3_flash_attention_bwd_bf16(
     int64_t dq_sh, int64_t dk_sb, int64_t dk_sl, int64_t dk_sh, int64_t dv_sb,
     int64_t dv_sl, int64_t dv_sh, int causal, float scale, void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   if (heads % kv_heads != 0 || lq <= 0 || lk <= 0 || batch <= 0)
     return cudaErrorInvalidValue;
   const int chunks = dkv_chunks(batch, lq, lk, heads);

@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "tma_wgmma.cuh"  // mbarriers, TMA loads, the wgmma descriptor, the map encoder
+#include "device.cuh"  // use_device, PerDevice
 
 namespace rga3 {
 namespace {
@@ -338,8 +339,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int k, int64_t ld, in
 template <int EPI>
 cudaError_t launch(const GemmParams& p, const void* a, int64_t lda, const void* w,
                    int64_t ldw, cudaStream_t stream) {
-  static const cudaError_t set = cudaFuncSetAttribute(
-      gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  static PerDevice smem_attr;
+  const cudaError_t set = smem_attr.get([] {
+    return cudaFuncSetAttribute(gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemBytes);
+  });
   if (set != cudaSuccess) return set;
   CUtensorMap map_a, map_w;
   if (!make_map(&map_a, a, p.m, p.k, lda, kBM) || !make_map(&map_w, w, p.n, p.k, ldw, kBN))
@@ -358,15 +362,18 @@ cudaError_t launch(const GemmParams& p, const void* a, int64_t lda, const void* 
 }  // namespace
 }  // namespace rga3
 
-// Plain C entry point for ctypes. Leading dims are in elements. K must be a
+// Plain C entry point for ctypes, on CUDA device `device` (device.cuh).
+// Leading dims are in elements. K must be a
 // multiple of 8, N even, lda and ldw multiples of 8, ldr and ldo even; a, w
 // and out 16-byte aligned (TMA reads a and w), which the wrapper checks; bias
 // bf16 (N); res given for the residual epilogues. M, N < 2^31. Returns a
 // cudaError_t (0 on success).
-extern "C" int rga3_gemm_bf16(const void* a, int64_t lda, const void* w, int64_t ldw,
-                              const void* bias, const void* res, int64_t ldr, void* out,
-                              int64_t ldo, int m, int n, int k, int epilogue, void* stream) {
+extern "C" int rga3_gemm_bf16(int device, const void* a, int64_t lda, const void* w,
+                              int64_t ldw, const void* bias, const void* res, int64_t ldr,
+                              void* out, int64_t ldo, int m, int n, int k, int epilogue,
+                              void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   const bool needs_res = epilogue == kResBf16 || epilogue == kResF32;
   if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 2 || lda % 8 || ldw % 8 || ldo % 2 ||
       (needs_res && (res == nullptr || ldr % 2)) || bias == nullptr ||

@@ -78,6 +78,7 @@
 #include <stdint.h>
 
 #include "tma_wgmma.cuh"  // mbarriers, TMA loads, the wgmma descriptor, the map encoder
+#include "device.cuh"  // use_device, PerDevice
 
 namespace rga3 {
 namespace {
@@ -679,11 +680,11 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const 
 
 // The card's SMs, asked once a device.
 cudaError_t sm_count(int& sms) {
-  static int count[64] = {};
+  static int count[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (count[dev] == 0)
     err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
   sms = count[dev];
@@ -693,8 +694,11 @@ cudaError_t sm_count(int& sms) {
 template <int BT, int COLS>
 cudaError_t launch_tile(const Int4Params& p, int splits, int sms, cudaStream_t stream) {
   using C = TileCfg<BT, COLS>;
-  static const cudaError_t set = cudaFuncSetAttribute(
-      int4_tile_kernel<BT, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  static PerDevice smem_attr;
+  const cudaError_t set = smem_attr.get([] {
+    return cudaFuncSetAttribute(int4_tile_kernel<BT, COLS>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  });
   if (set != cudaSuccess) return set;
   const auto sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap map_xlo, map_xhi, map_q, map_s;
@@ -735,7 +739,8 @@ cudaError_t launch_tile(const Int4Params& p, int splits, int sms, cudaStream_t s
 }  // namespace
 }  // namespace rga3
 
-// Plain C entry point for ctypes. x (m, in) bf16, q (in/2, out) int8,
+// Plain C entry point for ctypes, on CUDA device `device` (device.cuh).
+// x (m, in) bf16, q (in/2, out) int8,
 // scales (n_groups, out) f32 with group = 32 (in % 64 == 0) or in (one
 // row), y (m, out) bf16, all contiguous and 16-byte aligned. With in % 16
 // == 0 and out % 16 == 0 the TMA tile runs, its groups split over
@@ -746,10 +751,11 @@ cudaError_t launch_tile(const Int4Params& p, int splits, int sms, cudaStream_t s
 // generic tile, which ignores splits. Calls that share a workspace must
 // not overlap in time (one stream). Returns a cudaError_t (0 on
 // success).
-extern "C" int rga3_int4_matmul_bf16(const void* x, const void* q, const void* scales, void* y,
-                                     void* ws, int m, int in, int out, int group, int splits,
-                                     void* stream) {
+extern "C" int rga3_int4_matmul_bf16(int device, const void* x, const void* q,
+                                     const void* scales, void* y, void* ws, int m, int in,
+                                     int out, int group, int splits, void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   if (m <= 0 || in <= 0 || out <= 0 || in % 2 || splits < 1 ||
       !((group == kGroup && in % (2 * kGroup) == 0) || (group == in && in % (2 * kGroup) != 0)) ||
       (splits > 1 && (ws == nullptr || m > 4)))

@@ -22,6 +22,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "device.cuh"  // use_device, PerDevice
 
 namespace rga3 {
 namespace {
@@ -124,14 +125,16 @@ __global__ void __launch_bounds__(kPoolThreads)
 }  // namespace
 }  // namespace rga3
 
-// Plain C entry points for ctypes. Leading dims are in elements, multiples
+// Plain C entry points for ctypes, on CUDA device `device` (device.cuh).
+// Leading dims are in elements, multiples
 // of 8, and the pointers 16-byte aligned. Each returns a cudaError_t.
 
 // d a multiple of 8; g and b bf16 (d), 16-byte aligned.
-extern "C" int rga3_layer_norm_bf16(const void* x, int64_t ldx, const void* g, const void* b,
-                                    void* y, int64_t ldy, int rows, int d, float eps,
-                                    void* stream) {
+extern "C" int rga3_layer_norm_bf16(int device, const void* x, int64_t ldx, const void* g,
+                                    const void* b, void* y, int64_t ldy, int rows, int d,
+                                    float eps, void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   if (rows <= 0 || d <= 0 || d % 8 || ldx % 8 || ldy % 8) return cudaErrorInvalidValue;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   layer_norm_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -141,9 +144,11 @@ extern "C" int rga3_layer_norm_bf16(const void* x, int64_t ldx, const void* g, c
 }
 
 // out_rows pooled tokens (a multiple of (ws/2)^2); ws even; c a multiple of 8.
-extern "C" int rga3_window_pool2x2_bf16(const void* x, int64_t ldx, void* y, int64_t ldy,
-                                        int64_t out_rows, int ws, int c, void* stream) {
+extern "C" int rga3_window_pool2x2_bf16(int device, const void* x, int64_t ldx, void* y,
+                                        int64_t ldy, int64_t out_rows, int ws, int c,
+                                        void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   if (out_rows <= 0 || ws < 2 || ws % 2 || c <= 0 || c % 8 || ldx % 8 || ldy % 8 ||
       out_rows % ((ws / 2) * (ws / 2)))
     return cudaErrorInvalidValue;

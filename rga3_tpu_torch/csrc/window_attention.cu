@@ -30,6 +30,7 @@
 // windows over 64 keys, masked block-diagonally); every other case, (16,
 // 16), (64, 64), (64, 16), (256, 256) and (256, 64), is mask-free.
 #include "attention_mma.cuh"
+#include "device.cuh"  // use_device, PerDevice
 
 namespace rga3 {
 namespace {
@@ -125,19 +126,21 @@ cudaError_t launch(const WindowParams& p, int batch, int heads, cudaStream_t str
 }  // namespace
 }  // namespace rga3
 
-// Plain C entry point for ctypes. Strides are in elements; q, k and v must
+// Plain C entry point for ctypes, on CUDA device `device` (device.cuh).
+// Strides are in elements; q, k and v must
 // have 16-byte aligned rows (data pointers 16-byte aligned, strides
 // multiples of 8), which the wrapper checks. `len` keys in windows of
 // `window`, a multiple of 16 that divides `len`; queries in windows of
 // `q_window` (== window, or window / 4 for pooled queries), which must
 // divide 64 or be a multiple of 64. Returns a cudaError_t (0 on success).
 extern "C" int rga3_window_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int batch, int len,
+    int device, const void* q, const void* k, const void* v, void* o, int batch, int len,
     int heads, int head_dim, int window, int q_window, int64_t q_sb, int64_t q_sl,
     int64_t q_sh, int64_t k_sb, int64_t k_sl, int64_t k_sh, int64_t v_sb,
     int64_t v_sl, int64_t v_sh, int64_t o_sb, int64_t o_sl, int64_t o_sh,
     float scale, void* stream) {
   using namespace rga3;
+  if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   using namespace rga3::mma_attn;
   if (window <= 0 || window % 16 != 0 || len % window != 0 || q_window <= 0 ||
       (q_window != window && 4 * q_window != window) ||

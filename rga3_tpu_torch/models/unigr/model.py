@@ -10,7 +10,7 @@ path is `seg_embeddings` plus the SAM2 decode (`evaluation/segmentor.py`);
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -86,6 +86,7 @@ class UniGR(nn.Module):
         masks_valid: torch.Tensor,  # (B,) 1.0 when the sample supervises masks
         pixel_patches: Optional[torch.Tensor] = None,
         vision_layout: Optional[Dict[str, Any]] = None,
+        reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """The training losses (the JAX package's `train_forward`): the LM's
         next-token cross-entropy times `ce_loss_weight`; the [SEG] embedding
@@ -94,7 +95,13 @@ class UniGR(nn.Module):
         best-IoU high-resolution mask resized bilinearly to the gt size, and
         the BCE and dice mask losses weighted per sample by has-[SEG] x
         `masks_valid`. Returns loss, ce_loss, mask_bce_loss, mask_dice_loss
-        and mask_loss (f32 scalars)."""
+        and mask_loss (f32 scalars).
+
+        `reduce`, for rows split over ranks, sums the normalisers (a (2,)
+        f32 tensor: the label count and the valid masks' count of these
+        rows) over the ranks that hold the global batch's other rows (the
+        JAX package normalises over the global batch); the losses are then
+        these rows' shares of the global losses."""
         cfg = self.cfg.seg
         dev = self.device
         images_sam = torch.as_tensor(images_sam, device=dev)
@@ -107,9 +114,16 @@ class UniGR(nn.Module):
             pixel_patches=None if pixel_patches is None else torch.as_tensor(pixel_patches),
             vision_layout=vision_layout,
         )
-        ce_loss = loss_ops.cross_entropy_loss(out["logits"], labels) * cfg.ce_loss_weight
-
         seg_emb, has_seg = self.seg_embeddings(out["hidden_states"], labels)
+        valid = has_seg.float() * torch.as_tensor(masks_valid, device=dev).float()
+        valid_bt = valid.repeat_interleave(t)
+        ce_total = mask_total = None
+        if reduce is not None:
+            ce_total, mask_total = reduce(torch.stack([loss_ops.label_count(labels),
+                                                       loss_ops.masked_count(valid_bt)]))
+        ce_loss = loss_ops.cross_entropy_loss(out["logits"], labels,
+                                              total=ce_total) * cfg.ce_loss_weight
+
         lang = seg_emb[:, None].expand(b, t, cfg.out_dim).reshape(b * t, 1, cfg.out_dim)
         frames = sam_normalize_maybe(images_sam.reshape(b * t, *images_sam.shape[2:]))
         sam_out = self.grounding_encoder.decode_frames_with_language(
@@ -120,12 +134,11 @@ class UniGR(nn.Module):
         size = tuple(gt_masks.shape[-2:])
         pred = resize_bilinear(sam_out["high_res_masks"][:, 0], size)  # (B*T, h, w)
 
-        valid = has_seg.float() * torch.as_tensor(masks_valid, device=dev).float()
-        valid_bt = valid.repeat_interleave(t)
         gt_flat = gt_masks.reshape(b * t, *size)
-        mask_bce = loss_ops.masked_sigmoid_ce_loss(pred, gt_flat, valid_bt) * cfg.bce_loss_weight
-        mask_dice = loss_ops.masked_dice_loss(pred, gt_flat, valid_bt,
-                                              scale=cfg.dice_scale) * cfg.dice_loss_weight
+        mask_bce = loss_ops.masked_sigmoid_ce_loss(pred, gt_flat, valid_bt,
+                                                   total=mask_total) * cfg.bce_loss_weight
+        mask_dice = loss_ops.masked_dice_loss(pred, gt_flat, valid_bt, scale=cfg.dice_scale,
+                                              total=mask_total) * cfg.dice_loss_weight
         mask_loss = mask_bce + mask_dice
         return {
             "loss": ce_loss + mask_loss,

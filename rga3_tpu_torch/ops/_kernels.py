@@ -7,6 +7,11 @@ then one link, into `build/` beside the package (listed in `.gitignore`);
 the library's name carries a hash of the sources and flags, so an edit to a
 source rebuilds it and an unchanged tree loads the existing file.
 
+The library links its own CUDA runtime, whose current device is not
+PyTorch's: every launching entry point takes the ordinal of its tensors'
+device first (`launch_on` gives it and PyTorch's current stream there), and
+makes that device current before it launches (`csrc/device.cuh`).
+
 Nothing here runs at import time: the CPU tests import every module, and a
 machine without the CUDA toolkit has no `nvcc`.
 """
@@ -20,13 +25,15 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "window_attention.cu", "gemm.cu",
            "row_ops.cu", "int4_matmul.cu")
-HEADERS = ("attention_mma.cuh", "tma_wgmma.cuh")
+HEADERS = ("attention_mma.cuh", "tma_wgmma.cuh", "device.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -90,26 +97,26 @@ def _build(target: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.rga3_flash_attention_bf16.argtypes = (
-        [p] * 7 + [i] * 6 + [i64] * 12 + [i, f, p]
+        [i] + [p] * 7 + [i] * 6 + [i64] * 12 + [i, f, p]
     )
     lib.rga3_flash_attention_bf16.restype = i
     lib.rga3_flash_attention_bwd_bf16.argtypes = (
-        [p] * 12 + [i] * 6 + [i64] * 24 + [i, f, p]
+        [i] + [p] * 12 + [i] * 6 + [i64] * 24 + [i, f, p]
     )
     lib.rga3_flash_attention_bwd_bf16.restype = i
     lib.rga3_flash_attention_bwd_scratch_words.argtypes = [i] * 6
     lib.rga3_flash_attention_bwd_scratch_words.restype = i64
     lib.rga3_window_attention_bf16.argtypes = (
-        [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
+        [i] + [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
     )
     lib.rga3_window_attention_bf16.restype = i
-    lib.rga3_gemm_bf16.argtypes = [p, i64, p, i64, p, p, i64, p, i64, i, i, i, i, p]
+    lib.rga3_gemm_bf16.argtypes = [i, p, i64, p, i64, p, p, i64, p, i64, i, i, i, i, p]
     lib.rga3_gemm_bf16.restype = i
-    lib.rga3_layer_norm_bf16.argtypes = [p, i64, p, p, p, i64, i, i, f, p]
+    lib.rga3_layer_norm_bf16.argtypes = [i, p, i64, p, p, p, i64, i, i, f, p]
     lib.rga3_layer_norm_bf16.restype = i
-    lib.rga3_window_pool2x2_bf16.argtypes = [p, i64, p, i64, i64, i, i, p]
+    lib.rga3_window_pool2x2_bf16.argtypes = [i, p, i64, p, i64, i64, i, i, p]
     lib.rga3_window_pool2x2_bf16.restype = i
-    lib.rga3_int4_matmul_bf16.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.rga3_int4_matmul_bf16.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
     lib.rga3_int4_matmul_bf16.restype = i
     lib.rga3_int4_matmul_workspace_words.argtypes = [i] * 3
     lib.rga3_int4_matmul_workspace_words.restype = i64
@@ -134,3 +141,16 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def launch_on(name: str, *tensors: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """(device ordinal, stream handle) of a launch on `tensors` (None
+    entries skipped): the one device they lie on and PyTorch's current
+    stream there. Raises ValueError, before anything launches, when they lie
+    on different devices."""
+    given = [t for t in tensors if t is not None]
+    dev = given[0].device
+    for t in given[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on different devices ({dev} and {t.device})")
+    return given[0].get_device(), torch.cuda.current_stream(dev).cuda_stream

@@ -264,10 +264,10 @@ def _flash_forward(q, k, v, q_seg, kv_seg, causal, scale, with_lse):
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    device, stream = _kernels.launch_on("flash_attention", q, k, v, q_seg, kv_seg)
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rga3_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
         None if kv_seg is None else kv_seg.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -320,6 +320,15 @@ def flash_attention_bwd(
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     q_seg, kv_seg = _segments(q, b, lq, lk, segment_ids, kv_segment_ids)
+    return _flash_backward(q, k, v, o, lse, do, q_seg, kv_seg, causal, scale)
+
+
+def _flash_backward(q, k, v, o, lse, do, q_seg, kv_seg, causal, scale):
+    """Launch the backward kernel: (dq, dk, dv)."""
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    device, stream = _kernels.launch_on("flash_attention_bwd", q, k, v, o, lse, do, q_seg,
+                                        kv_seg)
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, lk, hkv, d), dtype=v.dtype, device=q.device)
@@ -327,9 +336,8 @@ def flash_attention_bwd(
     # f32 scratch: delta, then the dK / dV partials of the split grid
     scratch = torch.empty(lib.rga3_flash_attention_bwd_scratch_words(b, lq, lk, h, hkv, d),
                           dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rga3_flash_attention_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if q_seg is None else q_seg.data_ptr(),
         None if kv_seg is None else kv_seg.data_ptr(),
@@ -429,10 +437,10 @@ def _window_forward(q, k, v, window, qw, scale):
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     b, _, h, d = q.shape
     lk = k.shape[1]
+    device, stream = _kernels.launch_on("window_attention", q, k, v)
     lib = _kernels.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rga3_window_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, lk, h, d, window, qw,
         *_ptr_strides(q), *_ptr_strides(k), *_ptr_strides(v),
         *_ptr_strides(out), float(scale), stream,

@@ -175,9 +175,9 @@ def _gemm(a, w, bias, epilogue, residual=None):
     n = w.shape[0]
     m = a.numel() // k
     out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    device, stream = _kernels.launch_on("gemm", a, w, bias, residual)
     err = _kernels.library().rga3_gemm_bf16(
-        a.data_ptr(), k, w.data_ptr(), k, bias.data_ptr(),
+        device, a.data_ptr(), k, w.data_ptr(), k, bias.data_ptr(),
         None if residual is None else residual.data_ptr(), n,
         out.data_ptr(), n, m, n, k, EPILOGUES[epilogue], stream,
     )
@@ -206,9 +206,9 @@ def _layer_norm(x, g, b, eps):
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    device, stream = _kernels.launch_on("layer_norm", x, g, b)
     err = _kernels.library().rga3_layer_norm_bf16(
-        x.data_ptr(), d, g.data_ptr(), b.data_ptr(), out.data_ptr(), d,
+        device, x.data_ptr(), d, g.data_ptr(), b.data_ptr(), out.data_ptr(), d,
         rows, d, float(eps), stream,
     )
     _kernels.check(err, "layer_norm")
@@ -242,9 +242,9 @@ def _window_pool2x2(x, ws):
     b, l, c = x.shape
     ld = x.stride(1)
     out = torch.empty((b, l // 4, c), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    device, stream = _kernels.launch_on("window_pool2x2", x)
     err = _kernels.library().rga3_window_pool2x2_bf16(
-        x.data_ptr(), ld, out.data_ptr(), c, b * l // 4, ws, c, stream,
+        device, x.data_ptr(), ld, out.data_ptr(), c, b * l // 4, ws, c, stream,
     )
     _kernels.check(err, "window_pool2x2")
     _record(window_pool2x2, (tuple(x.shape), x.stride(), int(ws)))

@@ -248,20 +248,25 @@ def int4_matmul_launch(x: torch.Tensor, kernel_q4: torch.Tensor,
         raise TypeError("int4_matmul: the packed weight must be int8 and the scales f32")
     if not (x.is_contiguous() and kernel_q4.is_contiguous() and scale_g.is_contiguous()):
         raise ValueError("int4_matmul: x, the packed weight and the scales must be contiguous")
-    if kernel_q4.device != x.device or scale_g.device != x.device:
-        raise ValueError("int4_matmul: inputs on different devices")
     if any(t.data_ptr() % 16 for t in (x, kernel_q4, scale_g)):
         raise ValueError("int4_matmul: inputs must be 16-byte aligned")
+    return _int4_launch(x, kernel_q4, scale_g)
+
+
+def _int4_launch(x, kernel_q4, scale_g):
+    out = kernel_q4.shape[1]
+    m, in_dim = x.shape
+    device, stream = _kernels.launch_on("int4_matmul", x, kernel_q4, scale_g)
     y = torch.empty((m, out), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y
-    splits = int4_splits(m, in_dim, out, _sm_count(x.device.index))
+    splits = int4_splits(m, in_dim, out, _sm_count(device))
     lib = _kernels.library()
+    # the split workspace of the tensors' own device
     ws = (_int4_workspace(x.device, _int4_workspace_words(m, out, splits))
           if splits > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.rga3_int4_matmul_bf16(
-        x.data_ptr(), kernel_q4.data_ptr(), scale_g.data_ptr(), y.data_ptr(),
+        device, x.data_ptr(), kernel_q4.data_ptr(), scale_g.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(), m, in_dim, out,
         int4_group(in_dim), splits, stream,
     )

@@ -1,8 +1,11 @@
-"""Train UniGR on one card, counterpart of `scripts/train.py`:
+"""Train UniGR on one card or across ranks, counterpart of `scripts/train.py`:
 
     python -m rga3_tpu_torch.train --model_dir <Qwen2.5-VL dir | dummy> \
         [--sam_pretrained sam2_hiera_large.pt] --dataset_dir ./data \
         --config configs/release_7b.json [--device cpu]
+    torchrun --nproc_per_node 8 -m rga3_tpu_torch.train ... [--mesh_data 1 --mesh_fsdp 0]
+    python -m rga3_tpu_torch.train ... --coordinator_address host:port \
+        --num_processes N --process_id i
 
 The hybrid dataset mixture (`data.datasets`), prefetched by worker threads
 in index order; `--grad_accum_steps` micro-batches of `--micro_batch_size`
@@ -27,13 +30,28 @@ Each step logs its model FLOPs (`utils.flops.unigr_train_step_flops`
 over its micro-batches) and, on the card, its MFU against the card's bf16
 peak (`utils.profiling`). `--profile_dir` records a torch.profiler trace of
 the run there (`utils.profiling.trace`); the JAX script parses the flag and
-never reads it. The mesh and multi-host flags of the JAX script are not
-ported.
+never reads it.
+
+Across ranks (the JAX script's mesh and multi-host flags, or torchrun's
+environment; `parallel.init_distributed`: NCCL on `cuda:<local rank>`, gloo
+under `--device cpu`) the ranks form a (data, fsdp) mesh (`--mesh_fsdp 0`:
+the ranks left; `--mesh_tensor` > 1 raises, not ported). As in the JAX
+script, an epoch holds `data` times the samples and a global micro-batch
+`data` x `--micro_batch_size` rows; each rank collates only its rows of it
+(`parallel.put_global` of the global indices, `batch_axes`' split; every
+rank takes every row when the ranks do not divide them), with the vision
+budget of its rows. The losses are normalised over the global micro-batch
+(`train_forward(reduce=...)`), the gradients summed over the ranks once a
+step, and the trainable state sharded over fsdp (ZeRO-2, `MaskedAdamW`).
+Rank 0 logs, writes `--loss_log`, TensorBoard and the checkpoints, and runs
+the val loop, whose metric it broadcasts so that every rank agrees on
+"best". MFU is each rank's against one card's peak.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -44,7 +62,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import SegHeadConfig, TrainConfig
+from ..config import MeshConfig, SegHeadConfig, TrainConfig
 from ..convert import flax_path_and_shape, torch_leaf
 from ..data.collate import collate
 from ..data.datasets import ImgVidHybridDataset
@@ -56,6 +74,11 @@ from ..models.sam2.config import Sam2Config, tiny_sam2_config
 from ..models.sam2.loader import load_sam2_state_dict
 from ..models.unigr.build import QWEN_SIZES, qwen_config
 from ..models.unigr.model import UniGR, UniGRConfig
+from ..parallel.distributed import (
+    all_reduce, broadcast_scalar, init_distributed, is_main, put_global, rank0_print,
+    rank_device, world_size,
+)
+from ..parallel.mesh import TENSOR_AXIS_TODO, make_mesh
 from ..utils.flops import unigr_train_step_flops
 from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.profiling import annotate, mfu, trace
@@ -147,6 +170,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ce_loss_weight", type=float, default=1.0)
     p.add_argument("--dice_loss_weight", type=float, default=0.5)
     p.add_argument("--bce_loss_weight", type=float, default=2.0)
+    p.add_argument("--mesh_data", type=int, default=1)
+    p.add_argument("--mesh_fsdp", type=int, default=0, help="0 = all remaining ranks")
+    p.add_argument("--mesh_tensor", type=int, default=1, help="only 1: not ported")
+    # the launch of several processes (torchrun's environment works too);
+    # also read from COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of process 0 (joins the ranks' process group)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--auto_resume", action="store_true", default=True)
     p.add_argument("--no_auto_resume", dest="auto_resume", action="store_false")
     p.add_argument("--precision", default="bfloat16")
@@ -163,7 +195,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--val_at_start", action="store_true",
                    help="also run the val loop before step 0")
     p.add_argument("--val_samples", type=int, default=200)
-    p.add_argument("--loss_log", default=None, help="write per-step loss JSON here")
+    p.add_argument("--loss_log", default=None, help="write per-step loss JSON here (rank 0)")
     p.add_argument("--config", default=None, help="JSON config file; CLI flags override")
     p.add_argument("--device", default=None, help="default: the current CUDA device")
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -203,12 +235,12 @@ def build(args, device: torch.device, resuming: bool = False):
         model.text_hidden_fcs.float()
     loaded: Dict[str, torch.Tensor] = {}
     if args.model_dir != "dummy":
-        print("loading pretrained weights...", flush=True)
+        rank0_print("loading pretrained weights...")
         try:
             loaded.update(("qwen." + k, v) for k, v in
                           load_qwen25vl_state_dict(args.model_dir, torch.bfloat16).items())
         except FileNotFoundError:
-            print("no checkpoint found: random-initializing the LLM", flush=True)
+            rank0_print("no checkpoint found: random-initializing the LLM")
     if args.sam_pretrained:
         loaded.update(("grounding_encoder." + k, v) for k, v in
                       load_sam2_state_dict(args.sam_pretrained).items())
@@ -222,24 +254,27 @@ def build(args, device: torch.device, resuming: bool = False):
         keep=lambda key: args.param_dtype == "float32" and trainable(key),
         skip=lambda key: resuming and trainable(key))
     del loaded
-    print(f"params assembled in {time.perf_counter() - t0:.1f}s", flush=True)
+    rank0_print(f"params assembled in {time.perf_counter() - t0:.1f}s")
     return model, proc, masters
 
 
 class AccumBatches:
-    """`make_accum_batch(batch_idx)` of the JAX script: the global samples
-    of one accumulation batch collated into micro-batches and padded to one
-    text length and gt-mask size, stacked on a leading micro-batch axis.
+    """`make_accum_batch(batch_idx)` of the JAX script: this rank's samples
+    of one accumulation batch (its `rows` of each global micro-batch of
+    `micro` rows) collated into micro-batches and padded to one text length
+    and gt-mask size, stacked on a leading micro-batch axis.
     `seconds[batch_idx]` is the host time it took."""
 
-    def __init__(self, dataset, proc, cfg, args, start_epoch: int):
+    def __init__(self, dataset, proc, cfg, args, start_epoch: int, micro: int = None,
+                 rows: Sequence[int] = None):
         self.dataset, self.proc, self.cfg, self.args = dataset, proc, cfg, args
         self.offset = start_epoch * args.steps_per_epoch  # the resume offset
-        self.micro = args.micro_batch_size
+        self.micro = micro or args.micro_batch_size
+        self.rows = list(range(self.micro)) if rows is None else list(rows)
         # static vision budget: the per-frame patch cap (video pixel budget /
-        # 14^2) x temporal groups x micro-batch, in merge units
+        # 14^2) x temporal groups x this rank's rows, in merge units
         per_frame_patches = (320 * 28 * 28) // (14 * 14)
-        budget = self.micro * max(args.num_frames_mllm // 2, 1) * per_frame_patches
+        budget = len(self.rows) * max(args.num_frames_mllm // 2, 1) * per_frame_patches
         self.vision_budget = -(-budget // 4) * 4
         self.seconds: Dict[int, float] = {}
 
@@ -250,7 +285,7 @@ class AccumBatches:
         micro_batches = []
         for a in range(args.grad_accum_steps):
             base = (batch_idx * args.grad_accum_steps + a) * micro
-            samples = [self.dataset.sample_global(base + r) for r in range(micro)]
+            samples = [self.dataset.sample_global(base + r) for r in self.rows]
             c = collate(samples, self.proc, self.cfg.qwen, vision_budget_tokens=self.vision_budget)
             mb = {
                 "input_ids": c["input_ids"],
@@ -328,12 +363,32 @@ def main(argv: Optional[Sequence[str]] = None,
     summary: the `state`, per step the aux scalars and the accumulation
     batch index, seconds (step, forward / backward / optimizer, the wait on
     the loader, host seconds per accumulation batch), val scores and
-    seconds, checkpoint seconds and bytes, and the last step's micro-batches
-    (on the device)."""
+    seconds (rank 0's), the val metric every rank saw (`val_metric`),
+    checkpoint seconds and bytes, the last step's micro-batches (on the
+    device), the `mesh`, this rank's `rows` of a global micro-batch and the
+    `step` function."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    if args.mesh_tensor > 1:
+        raise NotImplementedError(TENSOR_AXIS_TODO)
+    # join the ranks before anything else touches the card
+    init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                     device=args.device)
+    device = rank_device() if torch.distributed.is_initialized() else resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    n_ranks = world_size()
+    fsdp = args.mesh_fsdp or n_ranks // (args.mesh_data * args.mesh_tensor)
+    mesh = make_mesh(MeshConfig(data=args.mesh_data, fsdp=fsdp, tensor=args.mesh_tensor))
+    rank0_print(f"mesh: {mesh.shape} over {n_ranks} process(es)")
+    # the JAX script's global micro-batch; this rank's rows of it, and the
+    # sum over the ranks that hold its other rows (none where every rank
+    # holds every row)
+    micro = args.micro_batch_size * mesh.shape["data"]
+    rows = put_global(mesh, np.arange(micro))
+    _, axes = mesh.rows(micro)
+    row_group = mesh.row_group(axes)
+    reduce = None if row_group is None else (lambda t: all_reduce(t, row_group))
+
     ckpt = CheckpointManager(args.ckpt_dir)
     start_epoch = ckpt.resume_epoch() if args.auto_resume else 0
     model, proc, masters = build(args, device, resuming=start_epoch > 0)
@@ -343,7 +398,7 @@ def main(argv: Optional[Sequence[str]] = None,
         args.dataset_dir,
         datasets=args.dataset.split(","),
         sample_rates=[float(x) for x in str(args.sample_rates).split(",")],
-        samples_per_epoch=args.steps_per_epoch * args.grad_accum_steps * args.micro_batch_size,
+        samples_per_epoch=args.steps_per_epoch * args.grad_accum_steps * micro,
         num_frames_mllm=args.num_frames_mllm,
         num_frames_sam=args.num_frames_sam,
         mask_res=args.mask_res,
@@ -356,18 +411,21 @@ def main(argv: Optional[Sequence[str]] = None,
         remat=args.remat,
     )
     master = torch.float32 if args.param_dtype == "float32" else None
-    state, opt = make_train_state(tcfg, model, master_dtype=master, master_init=masters)
+    state, opt = make_train_state(tcfg, model, master_dtype=master, master_init=masters,
+                                  mesh=mesh)
     del masters
-    step_fn = build_train_step(lambda m, mb: m.train_forward(**mb), opt,
-                               grad_accum_steps=args.grad_accum_steps, timed=True)
+    step_fn = build_train_step(lambda m, mb: m.train_forward(**mb, reduce=reduce), opt,
+                               grad_accum_steps=args.grad_accum_steps, timed=True,
+                               replicas=mesh.replicas(axes), aux_reduce=reduce)
     summary: Dict[str, Any] = {
-        "state": state, "steps": [], "val": [], "save": [], "restore": None,
+        "state": state, "steps": [], "val": [], "val_metric": [], "save": [], "restore": None,
         "trainable": sum(p.numel() for p in opt.params.values()),
+        "mesh": mesh, "rows": rows.tolist(), "step": step_fn,
     }
 
     summary["start_epoch"] = start_epoch
     if start_epoch > 0:
-        print(f"resuming from epoch {start_epoch}", flush=True)
+        rank0_print(f"resuming from epoch {start_epoch}")
         t0 = time.perf_counter()
         ckpt.restore("latest", state)
         _sync(device)
@@ -376,19 +434,20 @@ def main(argv: Optional[Sequence[str]] = None,
             on_restore(state)
 
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if is_main():
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(args.ckpt_dir, "tb"))
-    except ImportError:
-        pass
+            writer = SummaryWriter(os.path.join(args.ckpt_dir, "tb"))
+        except ImportError:
+            pass
 
-    make_accum_batch = AccumBatches(train_ds, proc, cfg, args, start_epoch)
+    make_accum_batch = AccumBatches(train_ds, proc, cfg, args, start_epoch, micro, rows)
     # buffer_size 2: an accumulation batch of 1024^2 SAM frames is hundreds
     # of MB of host memory
     loader = PrefetchLoader(make_accum_batch, num_workers=args.data_workers, buffer_size=2)
 
-    def run_val(label) -> Optional[float]:
+    def rank0_val(label) -> Optional[float]:
         """ReasonSeg-val gIoU / cIoU; None when the split is not on disk. A
         failure inside val (a missing label file, the model) raises."""
         from ..evaluation.image_seg_eval import reason_seg_images, run_reason_seg_val
@@ -407,6 +466,23 @@ def main(argv: Optional[Sequence[str]] = None,
             writer.add_scalar("val/gIoU", scores["gIoU"], label)
             writer.add_scalar("val/cIoU", scores["cIoU"], label)
         return scores["gIoU"]
+
+    def run_val(label) -> Optional[float]:
+        """Rank 0's val metric on every rank (the others wait for it; every
+        rank holds the whole model). A failure on rank 0 raises there and,
+        through an infinite metric, on every other rank."""
+        metric = None
+        if is_main():
+            try:
+                metric = rank0_val(label)
+            except BaseException:
+                broadcast_scalar(math.inf)
+                raise
+        metric = broadcast_scalar(metric)
+        if metric == math.inf:
+            raise RuntimeError(f"val {label} failed on rank 0")
+        summary["val_metric"].append((label, metric))
+        return metric
 
     global_step = start_epoch * args.steps_per_epoch
     loss_trace = []
@@ -441,7 +517,7 @@ def main(argv: Optional[Sequence[str]] = None,
                     global_step += 1
                     if args.loss_log:
                         loss_trace.append(aux["loss"])
-                    if it % args.log_every == 0:
+                    if it % args.log_every == 0 and is_main():
                         ProgressMeter(args.steps_per_epoch, list(meters.values()),
                                       prefix=f"epoch {epoch} ").display(it)
                         st = summary["steps"][-1]
@@ -451,22 +527,22 @@ def main(argv: Optional[Sequence[str]] = None,
                         if writer:
                             for k, m in meters.items():
                                 writer.add_scalar(f"train/{k}", m.val, global_step)
-                print(f"epoch {epoch} done in {time.perf_counter() - t_epoch:.0f}s", flush=True)
+                rank0_print(f"epoch {epoch} done in {time.perf_counter() - t_epoch:.0f}s")
                 metric = None if args.no_eval else run_val(epoch)
                 t0 = time.perf_counter()
                 is_best = ckpt.save_epoch(state, epoch, metric=metric)
                 summary["save"].append((time.perf_counter() - t0,
                                         os.path.getsize(ckpt._file("latest"))))
                 if is_best:
-                    print(f"epoch {epoch}: new best", flush=True)
+                    rank0_print(f"epoch {epoch}: new best")
     finally:
         loader.close()
-    if args.loss_log:
+    if args.loss_log and is_main():
         with open(args.loss_log, "w") as f:
             json.dump({"loss": loss_trace}, f)
     summary["peak_bytes"] = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
                              else None)
-    print("training complete", flush=True)
+    rank0_print("training complete")
     return summary
 
 

@@ -18,6 +18,12 @@ port's own file format:
     hard link to the latest file it copies;
   * `restore` raises ValueError when the file's names, shapes or dtypes
     differ from the state's.
+
+Over a mesh of ranks (`MaskedAdamW` sharded over fsdp) the file is the same:
+whole tensors. Every rank gathers the blocks together, rank 0 writes the
+file, the meta and the best link, and a `barrier` holds the others until it
+has. Every rank restores by reading the file and taking its own blocks, so a
+checkpoint written at one world size resumes at another.
 """
 from __future__ import annotations
 
@@ -28,26 +34,38 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.distributed import barrier, is_main
 from ..utils import safetensors_io
 
 STATE_FILE = "state.safetensors"
 
 
-def state_tensors(state) -> Dict[str, torch.Tensor]:
-    """{checkpoint name: tensor} of a `TrainState`'s trainable state."""
-    opt = state.opt
-    out = {}
+def _names(opt):
+    """(checkpoint name, parameter name, kind) of every saved tensor."""
     for name in opt.params:
-        out[("master." if name in opt.master else "param.") + name] = opt.value(name)
-        out["mu." + name] = opt.mu[name]
-        out["nu." + name] = opt.nu[name]
-    return out
+        yield ("master." if name in opt.master else "param.") + name, name, "value"
+        yield "mu." + name, name, "mu"
+        yield "nu." + name, name, "nu"
+
+
+def _local(opt, name: str, kind: str) -> torch.Tensor:
+    """This rank's block (or the whole) of a saved tensor."""
+    return {"value": opt.value, "mu": opt.mu.get, "nu": opt.nu.get}[kind](name)
+
+
+def state_tensors(state) -> Dict[str, torch.Tensor]:
+    """{checkpoint name: whole tensor} of a `TrainState`'s trainable state
+    (gathered over fsdp where the optimizer shards it: every rank calls it
+    together)."""
+    opt = state.opt
+    return {key: opt.full(name, _local(opt, name, kind)) for key, name, kind in _names(opt)}
 
 
 class CheckpointManager:
     def __init__(self, ckpt_dir: str):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        if is_main():
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         self.meta_path = os.path.join(self.ckpt_dir, "meta_log_info.json")
 
     # -- meta -----------------------------------------------------------
@@ -68,12 +86,18 @@ class CheckpointManager:
         return os.path.join(self.ckpt_dir, f"ckpt_{tag}", STATE_FILE)
 
     def save(self, tag: str, state) -> int:
-        """Write the state's trainable tensors under `tag`; returns the
-        bytes written."""
+        """Write the state's trainable tensors under `tag` (rank 0, after
+        every rank has gathered its blocks; the others wait for the file);
+        returns the bytes written, on every rank."""
         path = self._file(tag)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        meta = {"count": state.opt.count, "step": state.step}
-        return safetensors_io.save_file(state_tensors(state), path, metadata=meta)
+        tensors = state_tensors(state)
+        nbytes = 0
+        if is_main():
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            meta = {"count": state.opt.count, "step": state.step}
+            nbytes = safetensors_io.save_file(tensors, path, metadata=meta)
+        barrier()
+        return nbytes or os.path.getsize(path)
 
     def _link(self, src_tag: str, dst_tag: str) -> None:
         """`dst_tag` becomes the file of `src_tag` (a hard link, or a copy
@@ -91,26 +115,34 @@ class CheckpointManager:
 
     @torch.no_grad()
     def restore(self, tag: str, state):
-        """Load `tag` into `state` in place (the tensors onto their own
-        devices, the parameters of master tensors rounded from them) and
+        """Load `tag` into `state` in place (this rank's blocks onto their
+        own devices, the parameters of master tensors rounded from them) and
         return it."""
         path = self._file(tag)
         header, _ = safetensors_io.read_header(path)
-        want = state_tensors(state)
+        opt = state.opt
+        want = {key: (name, kind) for key, name, kind in _names(opt)}
         problems = sorted(set(header) ^ set(want))[:5]
-        for name in sorted(set(header) & set(want)):
-            e, t = header[name], want[name]
+        for key in sorted(set(header) & set(want)):
+            name, kind = want[key]
+            e, t = header[key], _local(opt, name, kind)
             dtype = safetensors_io.DTYPES[e["dtype"]][1]
-            if list(e["shape"]) != list(t.shape) or dtype != t.dtype:
-                problems.append(f"{name}: {e['dtype']} {e['shape']} in the file, "
-                                f"{t.dtype} {list(t.shape)} in the state")
+            shape = list(t.shape)  # the whole tensor's, of this rank's block
+            if opt.dims[name] is not None:
+                shape[opt.dims[name]] *= opt.mesh.shape["fsdp"]
+            if list(e["shape"]) != shape or dtype != t.dtype:
+                problems.append(f"{key}: {e['dtype']} {e['shape']} in the file, "
+                                f"{t.dtype} {shape} in the state")
         if problems:
             raise ValueError(f"{path} does not match the train state: {problems[:5]}")
-        for name, t in safetensors_io.iter_file(path):
-            want[name].copy_(t)
-        opt = state.opt
-        for name, master in opt.master.items():
-            opt.params[name].copy_(master)
+        for key, t in safetensors_io.iter_file(path):
+            name, kind = want[key]
+            if kind != "value":
+                _local(opt, name, kind).copy_(opt.shard(name, t))
+                continue
+            if name in opt.master:
+                opt.master[name].copy_(opt.shard(name, t))
+            opt.params[name].copy_(t)  # whole, rounded from its master
         meta = safetensors_io.read_metadata(path)
         opt.count, state.step = int(meta["count"]), int(meta["step"])
         return state
@@ -121,9 +153,11 @@ class CheckpointManager:
     # -- epoch bookkeeping ----------------------------------------------
     def save_epoch(self, state, epoch: int, metric: Optional[float] = None,
                    higher_is_better: bool = True) -> bool:
-        """Save latest; save best when `metric` improves. Returns is_best."""
+        """Save latest; save best when `metric` improves (every rank calls it
+        with the same metric; rank 0 writes). Returns is_best."""
         self.save("latest", state)
         meta = self.read_meta()
+        barrier()  # every rank has read the meta before rank 0 rewrites it
         meta["last_epoch"] = epoch
         is_best = False
         if metric is not None:
@@ -132,9 +166,12 @@ class CheckpointManager:
             if is_best:
                 meta["best_metric"] = metric
                 meta["best_epoch"] = epoch
-                self._link("latest", "best")
+                if is_main():
+                    self._link("latest", "best")
             meta.setdefault("history", []).append({"epoch": epoch, "metric": metric})
-        self.write_meta(meta)
+        if is_main():
+            self.write_meta(meta)
+        barrier()
         return is_best
 
     def resume_epoch(self) -> int:

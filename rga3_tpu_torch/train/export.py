@@ -71,11 +71,12 @@ def merge_lora(sd: Dict[str, torch.Tensor], lora_alpha: float, lora_rank: int
 
 def _source(model_or_state) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
     """(the model, its state dict with the f32 masters where a state keeps
-    them)."""
+    them: whole, gathered where the optimizer shards them, so that every
+    rank of a sharded run calls it together)."""
     if hasattr(model_or_state, "opt"):
         model, opt = model_or_state.model, model_or_state.opt
         sd = dict(model.state_dict())
-        sd.update((name, opt.value(name)) for name in opt.master)
+        sd.update((name, opt.full(name)) for name in opt.master)
         return model, sd
     return model_or_state, dict(model_or_state.state_dict())
 

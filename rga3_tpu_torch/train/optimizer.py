@@ -23,16 +23,20 @@ arithmetic:
     weight cast to bf16 at each use is the bf16 weight.
 
 The global norm is summed in f32 (optax sums each leaf in its own dtype).
+Over a mesh of ranks `MaskedAdamW` is ZeRO-2: each rank keeps its fsdp
+block of the state (see the class).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..config import TrainConfig
+from ..parallel.distributed import all_gather_along, all_reduce, reduce_scatter_along
+from ..parallel.sharding import infer_param_sharding
 
 DEFAULT_TRAINABLE_PATTERNS: Tuple[str, ...] = (
     "lora_a",
@@ -91,32 +95,68 @@ class MaskedAdamW:
     grad): clip by global norm, Adam moments, decoupled weight decay,
     `-lr(count)` (`lr_schedule(cfg)` unless a `schedule` is given), added to
     the parameter (or its master) in f32 and rounded to its dtype. `state`
-    holds `count`, `mu`, `nu` and `master`."""
+    holds `count`, `mu`, `nu` and `master`.
+
+    Over a `mesh` of ranks (`parallel.make_mesh`) it is ZeRO-2: each rank
+    holds and updates only its fsdp block of every tensor that
+    `infer_param_sharding` gives a dimension (its master, `mu` and `nu`;
+    `dims[name]`), and whole copies of the rest. `sync_grads` sums the
+    gradients over the ranks once a step (reduce-scatter over fsdp along
+    that dimension, else all-reduce; all-reduce over data) and divides by
+    the ranks that hold each row; the global norm counts every element
+    once; after the update each sharded parameter is all-gathered whole.
+    Elementwise, a block's update is the whole tensor's."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
                  master_init: Dict[str, torch.Tensor] = None,
-                 schedule: Callable[[int], float] = None):
+                 schedule: Callable[[int], float] = None, mesh=None):
         self.cfg = cfg
         self.schedule = schedule or lr_schedule(cfg)
         self.mu_dtype = DTYPES[cfg.adam_mu_dtype]
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.count = 0
+        self.mesh = mesh if mesh is not None and mesh.groups else None
+        self.dims: Dict[str, Optional[int]] = {n: None for n in self.params}
+        if self.mesh is not None:
+            self.dims = infer_param_sharding(model, self.mesh, self.params)
+            self.fsdp_index = self.mesh.coords[1]
         # a master starts from `master_init` where given (the values before
         # rounding to the model's dtype), else from the parameter; a
         # parameter already in `master_dtype` is its own master
         init = master_init or {}
         self.master = {} if master_dtype is None else {
-            n: (p.detach() if p.dtype == master_dtype
-                else init.get(n, p.detach()).to(p.device, master_dtype, copy=True))
+            n: (self.shard(n, p.detach()) if p.dtype == master_dtype
+                else self.shard(n, init.get(n, p.detach())).to(p.device, master_dtype,
+                                                                copy=True))
             for n, p in self.params.items()}
         # f32 sums of the micro-batches' gradients of the tensors with a master
         self.grad_sum: Dict[str, torch.Tensor] = {}
+        # the gradients summed over the ranks (this rank's blocks), after sync_grads
+        self.synced: Dict[str, torch.Tensor] = {}
         self.mu = {n: torch.zeros_like(self.value(n), dtype=self.mu_dtype) for n in self.params}
         self.nu = {n: torch.zeros_like(self.value(n)) for n in self.params}
 
+    def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole tensor of `name` (a view), or `t`."""
+        dim = self.dims[name]
+        if dim is None:
+            return t
+        n = t.shape[dim] // self.mesh.shape["fsdp"]
+        return t.narrow(dim, self.fsdp_index * n, n)
+
     def value(self, name: str) -> torch.Tensor:
-        """The tensor the update applies to: the master, else the parameter."""
-        return self.master.get(name, self.params[name])
+        """The tensor the update applies to: the master, else the parameter
+        (this rank's block of it, where it is sharded)."""
+        return self.master.get(name, self.shard(name, self.params[name]))
+
+    def full(self, name: str, t: torch.Tensor = None) -> torch.Tensor:
+        """The whole tensor of `name` from this rank's block `t` (default:
+        `value(name)`), gathered over fsdp where it is sharded (every rank
+        calls it together)."""
+        t = self.value(name) if t is None else t
+        if self.dims[name] is None:
+            return t
+        return all_gather_along(t, self.dims[name], self.mesh.group("fsdp"))
 
     @torch.no_grad()
     def accumulate(self) -> None:
@@ -133,20 +173,58 @@ class MaskedAdamW:
             p.grad = None
 
     def grads(self) -> Dict[str, torch.Tensor]:
-        """{name: the gradient the next update takes, or None}."""
+        """{name: the gradient the next update takes, or None}: after
+        `sync_grads`, this rank's block of the sum over the ranks."""
+        if self.synced:
+            return dict(self.synced)
         return {n: self.grad_sum.get(n) if n in self.master else p.grad
                 for n, p in self.params.items()}
 
+    @torch.no_grad()
+    def sync_grads(self, replicas: int = 1) -> None:
+        """Sum the gradients over the mesh's ranks and divide by `replicas`,
+        the ranks that held each row (one call a step; a no-op without a
+        mesh). A tensor without a gradient counts as zeros, so that every
+        rank makes the same collectives."""
+        if self.mesh is None:
+            return
+        fsdp, data = self.mesh.group("fsdp"), self.mesh.group("data")
+        for name, g in self.grads().items():
+            if g is None:
+                w = self.params[name]
+                g = torch.zeros(w.shape, dtype=self.value(name).dtype, device=w.device)
+            dim = self.dims[name]
+            if dim is None:
+                g = all_reduce(g, self.mesh.group("world"))
+            else:
+                g = all_reduce(reduce_scatter_along(g, dim, fsdp), data)
+            if replicas > 1:
+                g.div_(replicas)
+            self.synced[name] = g
+
     def zero_grad(self) -> None:
         self.grad_sum = {}
+        self.synced = {}
         for p in self.params.values():
             p.grad = None
 
     @torch.no_grad()
     def global_norm(self) -> torch.Tensor:
-        sq = [g.float().square().sum() for g in self.grads().values() if g is not None]
+        """The gradients' L2 norm, each element counted once: the blocks of
+        sharded tensors summed over fsdp, the whole ones once."""
+        grads = self.grads()
         dev = next(iter(self.params.values())).device
-        return torch.stack(sq).sum().sqrt() if sq else torch.zeros((), device=dev)
+
+        def sq(names):
+            parts = [grads[n].float().square().sum() for n in names if grads[n] is not None]
+            return torch.stack(parts).sum() if parts else torch.zeros((), device=dev)
+
+        whole = sq([n for n in grads if self.dims[n] is None])
+        if self.mesh is None:
+            return whole.sqrt()
+        blocks = all_reduce(sq([n for n in grads if self.dims[n] is not None]),
+                            self.mesh.group("fsdp"))
+        return (blocks + whole).sqrt()
 
     @torch.no_grad()
     def step(self) -> Dict[str, float]:
@@ -173,17 +251,21 @@ class MaskedAdamW:
                 upd = upd + cfg.weight_decay * w
             upd = torch.tensor(-lr, dtype=upd.dtype) * upd
             w.copy_((w + upd).to(w.dtype))
-            if name in self.master:
-                self.params[name].copy_(w)
+            p = self.params[name]
+            if self.dims[name] is not None:
+                p.copy_(self.full(name, w.to(p.dtype)))
+            elif name in self.master:
+                p.copy_(w)
             self.mu[name] = mu.to(self.mu_dtype)
             self.nu[name] = nu
         return {"lr": lr, "grad_norm": float(gnorm)}
 
 
 def build_optimizer(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
-                    master_init: Dict[str, torch.Tensor] = None) -> MaskedAdamW:
+                    master_init: Dict[str, torch.Tensor] = None, mesh=None) -> MaskedAdamW:
     """Mark the trainable parameters (`trainable_mask`) and build the masked
     AdamW over them (with `master_dtype` masters, from `master_init` where
-    it has the tensor; a parameter already in that dtype is its own)."""
+    it has the tensor; a parameter already in that dtype is its own; the
+    state sharded over `mesh`'s fsdp axis)."""
     trainable_mask(model)
-    return MaskedAdamW(cfg, model, master_dtype, master_init)
+    return MaskedAdamW(cfg, model, master_dtype, master_init, mesh=mesh)

@@ -1,14 +1,18 @@
 """Training meters and segmentation IoU counts, counterpart of
-`rga3_tpu/utils/meters.py` on one process: `AverageMeter` / `ProgressMeter`
-(the train loop's running losses), `intersection_and_union` and `giou_ciou`
-(gIoU: the mean per-sample IoU of the foreground class; cIoU: cumulative
-intersection over cumulative union). The JAX package's cross-host
-`AverageMeter.all_reduce` is not ported."""
+`rga3_tpu/utils/meters.py`: `AverageMeter` / `ProgressMeter` (the train
+loop's running losses; `AverageMeter.all_reduce` sums a meter over the ranks
+of the process group), `intersection_and_union` and `giou_ciou` (gIoU: the
+mean per-sample IoU of the foreground class; cIoU: cumulative intersection
+over cumulative union)."""
 from __future__ import annotations
 
 from typing import List, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..parallel.distributed import all_reduce, rank_device
 
 
 class AverageMeter:
@@ -29,6 +33,15 @@ class AverageMeter:
         self.sum += float(val) * n
         self.count += n
         self.avg = self.sum / max(self.count, 1e-8)
+
+    def all_reduce(self):
+        """Sum `sum` and `count` over every rank (f64, on the rank's device
+        under NCCL), so that `avg` is the mean over all ranks' updates; a
+        no-op without a process group."""
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            t = torch.tensor([self.sum, self.count], dtype=torch.float64, device=rank_device())
+            self.sum, self.count = (float(x) for x in all_reduce(t).tolist())
+            self.avg = self.sum / max(self.count, 1e-8)
 
     def __str__(self):
         return f"{self.name} {self.val:.4f} ({self.avg:.4f})"

@@ -74,6 +74,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError):
         UniGR(cfg)
     assert UniGR(cfg, device="cpu").device.type == "cpu"
+    # joining ranks takes NCCL on the card: without CUDA it raises, unless
+    # the CPU (gloo) is asked for; it raises before it contacts anyone
+    import torch.distributed as dist
+    from rga3_tpu_torch.parallel import init_distributed
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed("127.0.0.1:1", num_processes=2, process_id=0)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
+    assert not dist.is_initialized()
 
 
 def test_cpu_tensors_launch_nothing():
