@@ -196,6 +196,27 @@ Phases, each timed on its own line:
      wrappers as Hiera-L's blocks say), the answer equal to `UniGRChat.answer`
      and the RLEs to `segment_video` of the in-process model; both
      directories deleted;
+  6d. tensor: the mesh's tensor axis on the one card: two ranks, processes
+     of their own beside this one, in a gloo group (NCCL refuses two ranks
+     on one card; gloo carries CUDA tensors' all-reduce, and the port's
+     all-gathers go through it there, logged), each holding its blocks of a
+     Qwen2.5-VL-7B-width model whose LM is cut to TP_LAYERS layers (the
+     cut logged; the full depth runs on four cards), drawn from the seed
+     one leaf at a time (`tools/generate_ranks.build_seeded`). Greedy
+     generation (B = TP_BATCH, TP_PROMPT + TP_NEW tokens) in bf16 and in
+     int4 (the LM quantized leaf by leaf, then cut): under teacher forcing
+     on this process's one-rank tokens the logits within TP_TOL of the
+     step's max|logit|, the tokens equal wherever the one-rank top-2 gap
+     exceeds it; then TP_TRAIN_STEPS train steps of the UniGR (release
+     LoRA, SAM2 Hiera-L) on phase 6's batch: the losses and gradient norms
+     equal on both ranks and within TP_LOSS_RTOL / TP_NORM_RTOL of one
+     rank's, each trainable tensor's move within TP_MOVE_TOL of one rank's
+     in L2 (the vocabulary-sharded ones at the batch's rows), the tensors
+     whole over tensor bit-equal on both ranks. Each rank's counts are reset
+     before each run and read after it (flash forward, int4 and the flash
+     backward launched at the ranks' head counts and blocks); rank 0's
+     calls join phase 7's. Logged: held bytes, peak memory, prefill and
+     decode seconds, step seconds, each process's;
   7. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the paths
      made (shapes, strides, options, segment ids: the flash forward at
@@ -225,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import itertools
 import json
 import math
@@ -349,6 +371,38 @@ LOSS_TOL = 1e-2
 TRAIN_CLI_SIZES = dict(image=(480, 640), video=(720, 1280), frames=12, mp4=(480, 854),
                        mp4_frames=240, mp4_fps=30, items=3, val=(768, 1024), val_images=4)
 TRAIN_CLI_MODEL = "7b"
+# phase 6d: the tensor axis on the one card, two ranks (processes) over gloo
+# beside this process. The LM's depth is cut to TP_LAYERS (28 at 7B) so that
+# three 7B-width models fit; the full depth runs on four cards
+# (`tools/generate_ranks.py`, `tools/train_ranks.py`). Greedy generation of
+# TP_NEW tokens after a TP_PROMPT-token prompt, B = TP_BATCH, in bf16 and
+# int4; TP_TRAIN_STEPS train steps on phase 6's batch at a constant lr
+TP_LAYERS = 4
+TP_PROMPT, TP_NEW, TP_BATCH = 64, 16, 2
+TP_TRAIN_STEPS = 2
+TP_LR = 1e-4
+# bf16 rounding of a random-weight net (the one rank's products and the
+# ranks' split ones round differently, and the net amplifies it), read on an
+# H100 at seeds 0-2 (gates about 1.5x to 4x the largest reading): the
+# teacher-forced logits 1.80e-2 to 2.05e-2 of the step's max|logit| (bf16
+# and int4; TP_TOL, and the tokens equal wherever the one-rank top-2 gap
+# exceeds it), the losses 1.8e-4 to 3.8e-4 relative (TP_LOSS_RTOL), the
+# gradient norms 1.9e-4 to 4.5e-4 (TP_NORM_RTOL), each LM tensor's move
+# (LoRA A, B, the vocabulary rows) up to 0.123 of one rank's in L2
+# (TP_MOVE_TOL), SAM2's decoder and text_hidden_fcs as one vector each up
+# to 0.213 (TP_HEAD_MOVE_TOL). A LoRA gradient left unsummed over tensor
+# fails the norm, move and rank-equality gates (tiny width on the CPU:
+# 2.9e-2, 0.47 and 0.71) and passes the loss gate (5.9e-6)
+TP_TOL = 3e-2
+TP_LOSS_RTOL = 1e-3
+TP_NORM_RTOL = 2e-3
+TP_MOVE_TOL = 0.25
+TP_HEAD_MOVE_TOL = 0.4
+# the trainable tensors held to one rank's moves as one vector each
+TP_MOVE_WHOLE = ("sam_mask_decoder", "text_hidden_fcs")
+# the vocabulary-sharded trainable tensors, held to one rank at the rows of
+# the batch's ids (a rank holds half the vocabulary of each)
+VOCAB_ROWS = ("embed_tokens.weight", "lm_head.weight")
 RELEASE_CONFIG = os.path.join(HERE, "configs", "release_7b.json")
 # kernels (by name) that ptxas must compile without spills
 NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel",
@@ -3375,6 +3429,379 @@ def _train_cli_runs(seed: int, card_line: str, read_path) -> dict:
     return {"train_cli": cold["path"]}
 
 
+def kernel_wrappers() -> dict:
+    """{name: wrapper} of every kernel wrapper whose launches and calls the
+    paths record."""
+    from rga3_tpu_torch.ops import fused_block as fb
+    from rga3_tpu_torch.ops.attention import flash_attention, flash_attention_bwd, window_attention
+    from rga3_tpu_torch.ops.quant import int4_matmul
+
+    wrappers = {"flash_attention": flash_attention, "window_attention": window_attention,
+                "int4_matmul": int4_matmul, "flash_attention_bwd": flash_attention_bwd}
+    wrappers.update((name, getattr(fb, name)) for name in SEGMENT_KERNELS[2:])
+    return wrappers
+
+
+def launch_snapshot():
+    """(launches, calls) of every kernel wrapper since the last reset: a
+    snapshot, since later calls add to the wrappers' records. Every path
+    (phase 6d's ranks too) is read through it."""
+    wrappers = kernel_wrappers()
+    return ({k: f.launches for k, f in wrappers.items()},
+            {k: {key: tuple(rec) for key, rec in f.shapes.items()} for k, f in wrappers.items()})
+
+
+def tensor_configs(size: str, layers: int, seg_token_id: int):
+    """(phase 6d's Qwen2.5-VL config, its UniGR config with the release
+    LoRA): `size`'s widths, the LM cut to `layers`."""
+    from rga3_tpu_torch.config import SegHeadConfig
+    from rga3_tpu_torch.models.sam2.config import Sam2Config, tiny_sam2_config
+    from rga3_tpu_torch.models.unigr import UniGRConfig
+    from rga3_tpu_torch.tools.generate_ranks import lm_config
+
+    qcfg = lm_config(size, layers)
+    if size == "tiny":  # 8 query heads: int4's row blocks need 32 packed rows a rank
+        qcfg = qcfg.replace(text=qcfg.text.replace(num_attention_heads=8))
+    lora = qcfg.replace(text=qcfg.text.replace(lora_rank=128, lora_alpha=256.0))
+    scfg = tiny_sam2_config() if size == "tiny" else Sam2Config()
+    return qcfg, UniGRConfig(qwen=lora, sam2=scfg,
+                             seg=SegHeadConfig(out_dim=scfg.d_model, seg_token_id=seg_token_id))
+
+
+def tensor_runs(mesh, job: dict, device, refs=None) -> dict:
+    """Phase 6d's work on one rank of `mesh` (this process alone: a mesh of
+    one rank): seeded greedy generation in bf16 and int4 and the logits
+    under teacher forcing on `refs` (the one-rank tokens; its own without),
+    then TP_TRAIN_STEPS train steps of the seeded UniGR on `job["batch"]`;
+    each run's kernel launches and calls (counts reset before it), seconds
+    and peak memory."""
+    import torch
+    from rga3_tpu_torch.config import TrainConfig
+    from rga3_tpu_torch.models.qwen25vl.generate import greedy_generate
+    from rga3_tpu_torch.models.unigr import UniGR
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.parallel.distributed import GLOO_CUDA_VIA_ALL_REDUCE
+    from rga3_tpu_torch.parallel.fsdp import shard_model
+    from rga3_tpu_torch.tools.generate_ranks import (
+        build_seeded, fill_seeded, prompt_inputs, teacher_forced,
+    )
+    from rga3_tpu_torch.train.optimizer import DEFAULT_TRAINABLE_PATTERNS
+    from rga3_tpu_torch.train.step import build_train_step, make_train_state
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    qcfg, ucfg = tensor_configs(job["size"], job["layers"], job["seg_token_id"])
+    out = {}
+    for mode, bits in (("bf16", None), ("int4", 4)):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        model = build_seeded(qcfg, mesh, job["seed"], device, bits=bits)
+        kw = prompt_inputs(TP_BATCH, TP_PROMPT, job["seed"], qcfg.text.vocab_size)
+        stats = {}
+        tokens = greedy_generate(model, **kw, max_new_tokens=TP_NEW, eos_token_id=-1,
+                                 pad_token_id=0, stats=stats)
+        ref = tokens.cpu() if refs is None else refs[mode]
+        logits = teacher_forced(model, kw["input_ids"], ref)
+        sync()
+        out[mode] = {"tokens": tokens.cpu(), "logits": logits.cpu(), "stats": stats,
+                     "path": launch_snapshot(),
+                     "peak": torch.cuda.max_memory_allocated(device) if cuda else 0,
+                     "held": sum(t.numel() * t.element_size()
+                                 for t in model.state_dict().values())}
+        del model, logits
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    model = UniGR(ucfg, device="meta", dtype=torch.bfloat16)
+    shard_model(model, mesh, device=device,
+                trainable=lambda n: any(p in n for p in DEFAULT_TRAINABLE_PATTERNS))
+    fill_seeded(model, job["seed"], device)
+    state, opt = make_train_state(TrainConfig(lr=TP_LR), model, master_dtype=torch.float32,
+                                  mesh=mesh if mesh.groups else None)
+    opt.schedule = lambda count: TP_LR  # the first step moves the weights too
+    step = build_train_step(lambda m, mb: m.train_forward(**mb), opt, timed=True,
+                            replicas=mesh.replicas(None))
+    batch = {k: (v.to(device) if isinstance(v, torch.Tensor)
+                 else {a: b.to(device) for a, b in v.items()}) for k, v in job["batch"].items()}
+    plan = getattr(model, "shard_plan", None)
+    ids = torch.unique(job["batch"]["input_ids"])
+
+    def trainables():
+        """{name: f32 value} of the trainable tensors, whole (gathered over
+        tensor), except the vocabulary-sharded ones: of those the rows of
+        the batch's ids that this rank holds, {name: (ids, rows)}."""
+        got = {}
+        for n in sorted(opt.params):
+            v = opt.full(n).detach()
+            if n.endswith(VOCAB_ROWS):
+                lo, per = 0, v.shape[0]
+                if n in opt.tensor_sharded:
+                    parts, index = plan.blocks[n].tensor
+                    per = plan.blocks[n].full_shape[0] // parts
+                    lo = index * per
+                mine = ids[(ids >= lo) & (ids < lo + per)]
+                got[n] = (mine, v[mine.to(v.device) - lo].to("cpu", torch.float32, copy=True))
+            else:
+                got[n] = opt.whole(n, v).to("cpu", torch.float32, copy=True)
+        return got
+
+    before = trainables()
+    reset_launches()
+    losses, seconds = [], []
+    for _ in range(TP_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, [batch])
+        losses.append({k: float(v) for k, v in aux.items()})
+        sync()
+        seconds.append(time.perf_counter() - t0)
+    path = launch_snapshot()
+    after = trainables()
+    moves = {n: ((v[0], v[1] - before[n][1]) if isinstance(v, tuple) else v - before[n])
+             for n, v in after.items()}
+    # the tensors every tensor rank holds whole, as bytes: equal on every rank
+    replicated = hashlib.sha256()
+    for n in sorted(opt.params):
+        if n not in opt.tensor_sharded:
+            replicated.update(opt.full(n).detach().float().cpu().numpy().tobytes())
+    out["train"] = {"losses": losses, "seconds": seconds, "path": path,
+                    "peak": torch.cuda.max_memory_allocated(device) if cuda else 0,
+                    "tensor_sharded": sorted(opt.tensor_sharded),
+                    "partial": len(opt.partial), "moves": moves,
+                    "replicated": replicated.hexdigest()}
+    out["gloo_cuda_via_all_reduce"] = dict(GLOO_CUDA_VIA_ALL_REDUCE)
+    del state, opt, model, step
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moved(obj, device):
+    """`obj` (tuples, lists and dicts of tensors) with its tensors as numpy
+    arrays (`device` None), or its numpy arrays as tensors on `device`:
+    phase 6d's recorded calls cross processes by value (a torch tensor
+    would travel as a handle to the sender's memory, which closes with
+    it)."""
+    import numpy as np
+    import torch
+
+    if device is None and isinstance(obj, torch.Tensor):
+        return obj.cpu().numpy()
+    if device is not None and isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj).to(device)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_moved(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _moved(v, device) for k, v in obj.items()}
+    return obj
+
+
+def _tensor_rank(rank: int, port: int, job: dict, out) -> None:
+    """One of phase 6d's two ranks: a process on this card joining a gloo
+    group of two (NCCL refuses two ranks on one card); puts its results."""
+    import traceback
+
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from rga3_tpu_torch.config import MeshConfig
+        from rga3_tpu_torch.parallel import init_distributed, make_mesh
+
+        device = torch.device(job["device"])
+        init_distributed(f"127.0.0.1:{port}", 2, rank, device=device,
+                         backend="gloo" if device.type == "cuda" else None)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(MeshConfig(tensor=2))
+        res = tensor_runs(mesh, job, device, refs=job["refs"])
+        if rank != 0:
+            # rank 0's logits and whole tensors stand for both (every rank
+            # gathers them whole); each rank's own vocabulary rows travel
+            for mode in ("bf16", "int4"):
+                res[mode]["logits"] = None
+            res["train"]["moves"] = {n: m for n, m in res["train"]["moves"].items()
+                                     if isinstance(m, tuple)}
+        out.put((rank, "ok", _moved(res, None)))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def train_moves(one: dict, results: dict) -> dict:
+    """{name: (the two ranks' move, one rank's)} of phase 6d's trainable
+    tensors over its train steps, f32 on the host: rank 0's whole tensors;
+    the vocabulary-sharded ones at the batch's rows, rank 0's rows then
+    rank 1's."""
+    import torch
+
+    out = {}
+    for n, w in one["train"]["moves"].items():
+        got = [_moved(results[r]["train"]["moves"].get(n), "cpu") for r in (0, 1)]
+        if isinstance(w, tuple):
+            ids = torch.cat([got[0][0], got[1][0]])
+            if not torch.equal(ids, w[0]):
+                raise AssertionError(f"tensor train: {n}: the ranks' rows are not the batch's")
+            out[n] = (torch.cat([got[0][1], got[1][1]]), w[1])
+        else:
+            out[n] = (got[0], w)
+    return out
+
+
+def tensor_phase(seed: int, frames, device: str = "cuda", size: str = "7b",
+                 layers: int = TP_LAYERS) -> dict:
+    """Phase 6d: the tensor axis on one card (see the module docstring).
+    Returns the two ranks' rank-0 paths (launches, calls) by name."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import socket
+
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.config import MeshConfig
+    from rga3_tpu_torch.data.processor import QwenVLProcessor
+    from rga3_tpu_torch.parallel.mesh import Mesh
+    from rga3_tpu_torch.train.optimizer import DEFAULT_TRAINABLE_PATTERNS
+
+    proc = QwenVLProcessor.from_pretrained("dummy")
+    _, ucfg = tensor_configs(size, layers, proc.seg_token_id)
+    batch = train_batch(frames, ucfg, seed, "cpu")
+    job = {"size": size, "layers": layers, "seed": seed, "seg_token_id": proc.seg_token_id,
+           "batch": batch, "device": device}
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    one = tensor_runs(Mesh(MeshConfig(), np.zeros((1, 1, 1), dtype=int)), job, dev)
+    log(f"tensor: one rank (LM cut to {layers} of 28 layers at {size} width): "
+        + "; ".join(f"{m} peak {one[m]['peak'] / 2**30:.2f} GiB, held "
+                    f"{one[m]['held'] / 1e9:.3f} GB, prefill {one[m]['stats']['prefill_s']:.3f} s, "
+                    f"decode {one[m]['stats']['decode_s']:.3f} s" for m in ("bf16", "int4"))
+        + f"; train losses {[round(x['loss'], 6) for x in one['train']['losses']]}, "
+        f"steps {[round(x, 3) for x in one['train']['seconds']]} s, peak "
+        f"{one['train']['peak'] / 2**30:.2f} GiB; {time.perf_counter() - t0:.2f} s")
+    job["refs"] = {m: one[m]["tokens"] for m in ("bf16", "int4")}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tensor_rank, args=(r, port, job, out), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < 2:
+            try:
+                rank, status, value = out.get(timeout=600)
+            except queue_mod.Empty:
+                raise AssertionError("tensor: a rank gave no result in 600 s") from None
+            if status != "ok":
+                raise AssertionError(f"tensor: rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    log(f"tensor: two ranks over gloo on one card, {time.perf_counter() - t0:.2f} s "
+        f"(spawn included); collectives of CUDA tensors through an all-reduce: "
+        f"{results[0]['gloo_cuda_via_all_reduce']}")
+    paths = {}
+    for r in (0, 1):
+        for run in ("bf16", "int4", "train"):
+            results[r][run]["path"] = _moved(results[r][run]["path"], dev)
+        for mode in ("bf16", "int4"):
+            results[r][mode] = _moved(results[r][mode], "cpu")
+    for mode in ("bf16", "int4"):
+        ref, got = one[mode], results[0][mode]
+        scale = ref["logits"].abs().amax(-1, keepdim=True)
+        err = ((got["logits"] - ref["logits"]).abs() / scale).amax().item()
+        top2 = ref["logits"].topk(2, -1).values
+        clear = (top2[..., 0] - top2[..., 1]) > TP_TOL * scale[..., 0]
+        # the teacher-forced picks (both sides read the one-rank tokens);
+        # the ranks' own greedy tokens part from it after a close step
+        agree = bool((got["logits"].argmax(-1) == ref["logits"].argmax(-1))[clear].all())
+        same = [torch.equal(results[r][mode]["tokens"], ref["tokens"]) for r in (0, 1)]
+        launches = got["path"][0]
+        log(f"tensor {mode}: teacher-forced logits max err / max|logit| {err:.3e} "
+            f"(tol {TP_TOL}); steps with a clear top-2 gap {clear.float().mean().item():.3f}, "
+            f"teacher-forced picks equal there {agree}, greedy tokens all equal (rank 0, 1) "
+            f"{same}; ranks' held "
+            f"{[round(results[r][mode]['held'] / 1e9, 3) for r in (0, 1)]} GB (one rank "
+            f"{ref['held'] / 1e9:.3f}), peak "
+            f"{[round(results[r][mode]['peak'] / 2**30, 2) for r in (0, 1)]} GiB; prefill {got['stats']['prefill_s']:.3f} s, decode "
+            f"{got['stats']['decode_s']:.3f} s (one rank {ref['stats']['decode_s']:.3f}); "
+            f"launches {dict((k, v) for k, v in launches.items() if v)}")
+        if not (err <= TP_TOL and agree and torch.isfinite(got["logits"]).all()):
+            raise AssertionError(f"tensor {mode}: the two ranks disagree with one rank")
+        paths[f"tensor2_{mode}"] = got["path"]
+    ref, got = one["train"], results[0]["train"]
+    losses = [[x["loss"] for x in results[r]["train"]["losses"]] for r in (0, 1)]
+    want = [x["loss"] for x in ref["losses"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[0], want))
+    norms = [[x["grad_norm"] for x in results[r]["train"]["losses"]] for r in (0, 1)]
+    want_norms = [x["grad_norm"] for x in ref["losses"]]
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms[0], want_norms))
+    moves, by_kind = train_moves(one, results), {}
+    for n, (m, w) in moves.items():
+        by_kind.setdefault(next(p for p in DEFAULT_TRAINABLE_PATTERNS if p in n), []).append(
+            (n, m.flatten(), w.flatten()))
+
+    def rel_l2(m, w):
+        return ((m - w).norm() / w.norm()).item() if w.norm() > 0 else float(m.norm() > 0)
+
+    # the LM's tensors one by one; the heads after it (SAM2's decoder,
+    # text_hidden_fcs) as one vector each, since some of their gradients
+    # are rounding noise by construction (an attention key bias's is zero)
+    move_err = {}
+    for kind, items in by_kind.items():
+        if kind in TP_MOVE_WHOLE:
+            move_err[kind] = (rel_l2(torch.cat([m for _, m, _ in items]),
+                                     torch.cat([w for _, _, w in items])), f"{len(items)} tensors")
+        else:
+            move_err[kind] = max((rel_l2(m, w), n) for n, m, w in items)
+    same = results[0]["train"]["replicated"] == results[1]["train"]["replicated"]
+    log(f"tensor train: losses {losses[0]} on both ranks {losses[0] == losses[1]}, one rank "
+        f"{want}, max rel diff {rel:.3e} (tol {TP_LOSS_RTOL}); grad norms {norms[0]}, one "
+        f"rank {want_norms}, max rel diff {norm_rel:.3e} (tol {TP_NORM_RTOL}); each "
+        f"trainable tensor's move against one rank's, relative L2, the largest by kind "
+        f"({len(moves)} tensors; tol {TP_MOVE_TOL}, {TP_HEAD_MOVE_TOL} for "
+        f"{'/'.join(TP_MOVE_WHOLE)} as one vector each): "
+        + ", ".join(f"{k} {e:.3e} ({n})" for k, (e, n) in sorted(move_err.items()))
+        + f"; the tensors whole over tensor bit-equal on both ranks {same}; steps "
+        f"{[round(x, 3) for x in got['seconds']]} s (one rank "
+        f"{[round(x, 3) for x in ref['seconds']]}); peak "
+        f"{[round(results[r]['train']['peak'] / 2**30, 2) for r in (0, 1)]} GiB (one rank "
+        f"{ref['peak'] / 2**30:.2f}); tensor-sharded {got['tensor_sharded']}, "
+        f"{got['partial']} LoRA factors summed over tensor; launches "
+        f"{dict((k, v) for k, v in got['path'][0].items() if v)}")
+    if not (losses[0] == losses[1] and norms[0] == norms[1] and same
+            and rel <= TP_LOSS_RTOL and norm_rel <= TP_NORM_RTOL
+            and all(e <= (TP_HEAD_MOVE_TOL if k in TP_MOVE_WHOLE else TP_MOVE_TOL)
+                    for k, (e, _) in move_err.items())
+            and all(math.isfinite(x) for x in losses[0])):
+        raise AssertionError("tensor train: the two ranks disagree with one rank")
+    paths["tensor2_train"] = got["path"]
+    # the ranks' paths went through the kernels
+    for name, need in (("tensor2_bf16", ("flash_attention",)),
+                       ("tensor2_int4", ("flash_attention", "int4_matmul")),
+                       ("tensor2_train", ("flash_attention", "flash_attention_bwd"))):
+        for k in need:
+            if paths[name][0][k] <= 0:
+                raise AssertionError(f"{name}: {k} was not launched")
+    return paths
+
+
 def second_card_check(seed: int) -> None:
     """Phase 2 on a machine with more than one card: one launch of each
     kernel on cuda:1, with PyTorch's current device left at 0 (the library
@@ -3740,12 +4167,7 @@ def main() -> int:
     from rga3_tpu_torch.models.sam2.model import Sam2Model
     from rga3_tpu_torch.models.unigr import UniGR, UniGRConfig
     from rga3_tpu_torch.ops import _kernels
-    from rga3_tpu_torch.ops import fused_block as fb
-    from rga3_tpu_torch.ops.attention import (
-        flash_attention, flash_attention_bwd, reset_launches, set_plain_attention,
-        window_attention,
-    )
-    from rga3_tpu_torch.ops.quant import int4_matmul
+    from rga3_tpu_torch.ops.attention import reset_launches, set_plain_attention
 
     t_all = time.perf_counter()
     # ---- 1. device
@@ -3829,17 +4251,8 @@ def main() -> int:
     masks = seg.segment_video_multi(frames, expressions)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    wrappers = {"flash_attention": flash_attention, "window_attention": window_attention,
-                "int4_matmul": int4_matmul, "flash_attention_bwd": flash_attention_bwd}
-    wrappers.update((name, getattr(fb, name)) for name in SEGMENT_KERNELS[2:])
-
-    def read_path():
-        """(launches, calls) of every wrapper since the last reset: a
-        snapshot, since later calls add to the wrappers' records."""
-        return ({k: f.launches for k, f in wrappers.items()},
-                {k: {key: tuple(rec) for key, rec in f.shapes.items()}
-                 for k, f in wrappers.items()})
-
+    wrappers = kernel_wrappers()
+    read_path = launch_snapshot
     launches, calls = read_path()
     paths = {"segment_video_multi": (launches, calls)}
     log(f"main path: segment_video_multi {wall:.3f} s; phases (s): "
@@ -3994,6 +4407,12 @@ def main() -> int:
     polygon_check(seed)
     paths.update(handoff_phase(frames, card_line, read_path))
     log(f"phase handoff: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 6d. the tensor axis: two ranks (processes) on this card over gloo
+    # against this process alone, generation in bf16 and int4 and training
+    t0 = time.perf_counter()
+    paths.update(tensor_phase(seed, frames))
+    log(f"phase tensor: {time.perf_counter() - t0:.2f} s")
 
     # ---- 7. each kernel against its plain version, at every call the paths
     # made (shapes, strides, masks and segment ids as recorded); a call's

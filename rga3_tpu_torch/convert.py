@@ -30,7 +30,8 @@ inverse, from a module (whose types tell a Dense kernel from an Embed
 table and a conv from a transposed conv; a port module that is not a
 `torch.nn` layer names its flax layout in a `flax_kind` attribute:
 "dense", "conv", "norm", or "heads_in" / "heads_out" with `heads`).
-`load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
+`load_flax_tree` fills a model (one cut to a rank's blocks too) from a
+tree one leaf at a time. `load_params_npz` reads the flat `a/b/kernel` npz the JAX package's
 exporter writes, `load_keystr_npz` the `keystr`-keyed npz of its tracker
 weights (with or without a `__config__` entry), with numpy alone, and
 `save_keystr_npz` writes one. `load_optax_state` carries the JAX
@@ -186,12 +187,52 @@ def torch_leaf(path: tuple, x: np.ndarray) -> np.ndarray:
     return _leaf(path, x)[1]
 
 
+@torch.no_grad()
+def load_flax_tree(model: torch.nn.Module, params: Tree, dtype: torch.dtype = None) -> None:
+    """Fill `model` from a nested numpy flax tree (optionally under
+    "params"), one leaf at a time: each leaf converted to the torch layout
+    (`torch_state_dict_from_flax`'s rules) and, in a model cut by
+    `parallel.fsdp.shard_model`, only the rank's block of it kept, so that
+    no rank holds the whole tree's tensors at once. `dtype` (default: each
+    entry's own) for the float leaves. Raises KeyError for a leaf the model
+    lacks and ValueError for a missing entry or a shape that differs."""
+    from .parallel.fsdp import state_entries_one
+
+    if set(params.keys()) == {"params"}:
+        params = params["params"]
+    plan = getattr(model, "shard_plan", None)
+    flat = _flatten(params)
+    quant = {p[:-1] for p in flat if p[-1] in QUANT_LEAVES}
+    seen = set()
+    for path, x in flat.items():
+        name, y = _leaf(path, x, path[:-1] in quant)
+        key = ".".join(path[:-1] + (name,))
+        target = state_entries_one(model, key)
+        shape = plan.blocks[key].full_shape if plan is not None else tuple(target.shape)
+        if tuple(y.shape) != tuple(shape):
+            raise ValueError(f"{key}: {tuple(y.shape)} in the tree, {tuple(shape)} in the model")
+        t = torch.from_numpy(np.require(y, requirements=["C", "W"]))
+        t = t.to(target.dtype if dtype is None or not target.is_floating_point() else dtype)
+        if plan is not None:
+            plan.load_(model, key, t)
+        else:
+            target.copy_(t)
+        seen.add(key)
+    missing = set(model.state_dict()) - seen
+    if missing:
+        raise ValueError(f"the tree has no leaf for {sorted(missing)[:5]}")
+
+
 def flax_tree_from_torch(model: torch.nn.Module) -> Dict[str, Any]:
     """The JAX package's nested numpy parameter tree (without the top-level
     "params") of a port module: float leaves in f32, the quantized layers'
-    int8 kernels and f32 scales as they are."""
+    int8 kernels and f32 scales as they are. A model cut by
+    `parallel.fsdp.shard_model` gives its whole tensors, gathered (every
+    rank calls it together)."""
+    from .parallel.fsdp import whole_state_dict
+
     tree: Dict[str, Any] = {}
-    for key, t in model.state_dict().items():
+    for key, t in whole_state_dict(model).items():
         parent, _, name = key.rpartition(".")
         module = model.get_submodule(parent) if parent else model
         if t.is_floating_point():
@@ -325,12 +366,14 @@ def load_optax_state(opt, state: Mapping[str, Any]) -> None:
             diff = sorted(set(tensors) ^ set(opt.params))[:5]
             raise ValueError(f"the optax {kind} and the trainable parameters differ: {diff}")
         for name, x in tensors.items():
-            if tuple(x.shape) != tuple(opt.params[name].shape):
+            shape = (opt.plan.blocks[name].full_shape if opt.plan is not None
+                     else tuple(opt.params[name].shape))
+            if tuple(x.shape) != tuple(shape):
                 raise ValueError(f"{kind} of {name}: shape {tuple(x.shape)} in the optax state, "
-                                 f"{tuple(opt.params[name].shape)} in the model")
+                                 f"{tuple(shape)} in the model")
     for kind, tensors in moments.items():
         target = getattr(opt, kind)
         for name, x in tensors.items():
-            t = torch.from_numpy(x)
+            t = opt.tensor_block(name, torch.from_numpy(x))
             target[name].copy_(opt.shard(name, t).to(target[name].dtype))
     opt.count = count

@@ -9,6 +9,13 @@ that stops once every row has emitted EOS (the JAX package's
 loop skips a forward whose tokens nothing reads: the last step's, and the
 one after every row is done. `suppress_ids` are banned by -inf logits;
 tokens after a row's EOS are `pad_token_id`.
+
+Over the mesh's tensor axis the head gives each rank its vocabulary columns:
+greedy picks take `parallel.tensor.sharded_argmax` (the first index of the
+maximum, as on one rank), sampling and `return_logits` gather the whole
+logits first (every rank draws with its own generator seeded alike), and
+the suppressed ids are banned in the columns that hold them. The output is
+then the same on every rank, and the same as one rank's.
 """
 from __future__ import annotations
 
@@ -17,7 +24,41 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ...parallel.tensor import full_logits, sharded_argmax
 from .language import make_kv_cache
+
+
+class _Vocab:
+    """The vocabulary columns a model's head gives this rank: suppression
+    in them, the greedy pick and sampling over the whole vocabulary."""
+
+    def __init__(self, model, suppress_ids: Sequence[int], device):
+        self.lm = getattr(model, "lm", model)
+        vr = getattr(self.lm, "vocab_range", None)
+        self.start = 0 if vr is None else vr[0]
+        self.sharded = vr is not None
+        sup = [i - self.start for i in suppress_ids
+               if vr is None or vr[0] <= i < vr[1]]
+        self.sup = torch.as_tensor(sup, dtype=torch.long, device=device)
+
+    def mask(self, lg: torch.Tensor) -> torch.Tensor:
+        lg = lg.float()
+        if self.sup.numel():
+            lg[..., self.sup] = float("-inf")
+        return lg
+
+    def whole(self, lg: torch.Tensor) -> torch.Tensor:
+        return full_logits(lg, self.lm)
+
+    def greedy(self, lg: torch.Tensor) -> torch.Tensor:
+        if self.sharded:
+            return sharded_argmax(lg, self.start, self.lm.tp.group)
+        return lg.argmax(-1)
+
+    def pick(self, lg, generator, temperature: float, top_p: float) -> torch.Tensor:
+        if temperature <= 0.0:
+            return self.greedy(lg)
+        return _sample_token(self.whole(lg), generator, temperature, top_p)
 
 
 def _sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -71,16 +112,12 @@ def greedy_generate(
     b, l = input_ids.shape
     input_ids = input_ids.to(dev, torch.long)
     attention_mask = attention_mask.to(dev)
-    cache = make_kv_cache(model.cfg.text, b, l + max_new_tokens, dtype=model.dtype, device=dev)
+    vocab = _Vocab(model, suppress_ids, dev)
+    cache = make_kv_cache(model.cfg.text, b, l + max_new_tokens, dtype=model.dtype, device=dev,
+                          kv_heads=vocab.lm.kv_heads)
     seg = attention_mask.to(torch.int32)
     last_idx = attention_mask.sum(1).long() - 1  # the only logits the head computes
-    sup = torch.as_tensor(list(suppress_ids), dtype=torch.long, device=dev)
-
-    def mask_logits(lg: torch.Tensor) -> torch.Tensor:
-        lg = lg.float()
-        if sup.numel():
-            lg[:, sup] = float("-inf")
-        return lg
+    mask_logits = vocab.mask
 
     t0 = time.perf_counter()
     if pixel_patches is not None:
@@ -89,11 +126,11 @@ def greedy_generate(
                 segment_ids=seg, pixel_patches=pixel_patches, vision_layout=vision_layout,
                 cache=cache, logits_indices=last_idx)
     lg = mask_logits(out["logits"][:, 0])
-    tok = _sample_token(lg, generator, temperature, top_p)
+    tok = vocab.pick(lg, generator, temperature, top_p)
     _sync(dev)
     t1 = time.perf_counter()
     forwards = 1
-    steps = [lg] if return_logits else []
+    steps = [vocab.whole(lg)] if return_logits else []
     # decode positions: prompt length + rope delta + step, on all 3 streams
     next_pos = attention_mask.sum(1).long() + torch.as_tensor(rope_deltas, device=dev).long()
     buf = torch.full((b, max_new_tokens), pad_token_id, dtype=torch.long, device=dev)
@@ -108,8 +145,8 @@ def greedy_generate(
         forwards += 1
         lg = mask_logits(out["logits"][:, -1])
         if return_logits:
-            steps.append(lg)
-        nxt = _sample_token(lg, generator, temperature, top_p)
+            steps.append(vocab.whole(lg))
+        nxt = vocab.pick(lg, generator, temperature, top_p)
         tok = torch.where(done, torch.full_like(nxt, pad_token_id), nxt)
     _sync(dev)
     if stats is not None:
@@ -179,17 +216,17 @@ def speculative_greedy_generate(
     attention_mask = attention_mask.to(dev)
     position_ids = torch.as_tensor(position_ids, device=dev)
     size = l + max_new_tokens + k + 2
-    tcache = make_kv_cache(model.cfg.text, 1, size, dtype=model.dtype, device=dev)
-    dcache = make_kv_cache(draft_model.cfg.text, 1, size, dtype=draft_model.dtype, device=dev)
+    tvocab = _Vocab(model, suppress_ids, dev)
+    dvocab = _Vocab(draft_model, suppress_ids, dev)
+    tcache = make_kv_cache(model.cfg.text, 1, size, dtype=model.dtype, device=dev,
+                           kv_heads=tvocab.lm.kv_heads)
+    dcache = make_kv_cache(draft_model.cfg.text, 1, size, dtype=draft_model.dtype, device=dev,
+                           kv_heads=dvocab.lm.kv_heads)
     seg = attention_mask.to(torch.int32)
     last_idx = attention_mask.sum(1).long() - 1
-    sup = torch.as_tensor(list(suppress_ids), dtype=torch.long, device=dev)
 
-    def greedy(lg: torch.Tensor) -> torch.Tensor:
-        lg = lg.float()
-        if sup.numel():
-            lg[..., sup] = float("-inf")
-        return lg.argmax(-1)
+    def greedy(lg: torch.Tensor, vocab: _Vocab = tvocab) -> torch.Tensor:
+        return vocab.greedy(vocab.mask(lg))
 
     t0 = time.perf_counter()
     if pixel_patches is not None:
@@ -218,7 +255,8 @@ def speculative_greedy_generate(
         tok, drafts = cur, []
         for i in range(k + 1):
             pos = torch.full((3, 1, 1), cur_pos + i, dtype=torch.long, device=dev)
-            tok = greedy(draft_model(tok[:, None], position_ids=pos, cache=dcache)["logits"][:, -1])
+            tok = greedy(draft_model(tok[:, None], position_ids=pos, cache=dcache)["logits"][:, -1],
+                         dvocab)
             drafts.append(tok)
         win_ids = torch.cat([cur] + drafts[:k])[None]  # (1, k + 1)
         pos = (cur_pos + offs)[None, None].expand(3, 1, k + 1)

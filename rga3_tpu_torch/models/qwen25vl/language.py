@@ -5,6 +5,14 @@ segment ids, M-RoPE, the LoRA adapters on q_proj / v_proj, the KV cache
 projections (`QuantLinear`). Scanned layers are not ported; that config
 field raises.
 
+Over the mesh's tensor axis (`parallel.tensor.setup`, through
+`parallel.fsdp.shard_model`) each projection holds and computes its block:
+q / k / v / gate / up column-parallel over whole heads, o / down
+row-parallel with the sum over the group after them, `embed_tokens` and
+`lm_head` (or the tied head) vocab-parallel; the KV cache holds the rank's
+KV heads. The modules carry the JAX package's logical names
+(`logical_axes`, the flax kernel's axes) for the sharding rule.
+
 The KV cache (`make_kv_cache`) is a dict of preallocated planes that a
 forward pass writes in place at `idx` and then advances: the port updates
 it where the JAX package returns a new pytree.
@@ -24,6 +32,11 @@ from ...ops.quant import (
     INT4_DECODE_ROWS, int4_group, int4_matmul, int8_matmul, int8_w8a8_matmul, quantize_int4,
     quantize_int8,
 )
+from ...parallel import fsdp
+from ...parallel.distributed import (
+    all_gather_along, all_reduce, copy_to_tensor, reduce_from_tensor,
+)
+from ...parallel.tensor import vocab_parallel_embedding
 from .config import QwenTextConfig
 
 
@@ -56,14 +69,17 @@ def _quantize_kv_i8(t: torch.Tensor):
 
 def make_kv_cache(cfg: QwenTextConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: Optional[torch.device] = None) -> Dict[str, Any]:
+                  device: Optional[torch.device] = None,
+                  kv_heads: Optional[int] = None) -> Dict[str, Any]:
     """KV cache for all layers: `k` / `v` (layers, B, max_len, Hkv, hd) in
     `dtype`, or int8 plus f32 `k_scale` / `v_scale` (layers, B, max_len, Hkv)
     with `cfg.kv_cache_int8`; `idx` the filled length (uniform over the
     batch); `seg` (B, max_len) the validity of each key (0 for the pads of
     a right-padded prefill); `fresh` True until the first forward, which
-    may then take the flash prefill."""
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    may then take the flash prefill. `kv_heads` (default: the config's) is
+    Hkv: the KV heads a rank computes under the tensor axis."""
+    hkv = cfg.num_key_value_heads if kv_heads is None else kv_heads
+    shape = (cfg.num_hidden_layers, batch, max_len, hkv, cfg.head_dim)
     cache: Dict[str, Any] = {
         "idx": 0, "fresh": True,
         "seg": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
@@ -111,7 +127,8 @@ class QuantLinear(nn.Module):
     @classmethod
     @torch.no_grad()
     def from_linear(cls, lin: nn.Linear, bits: int, w8a8_min_seq: int = 0) -> "QuantLinear":
-        """Quantize an `nn.Linear` (weight (out, in)) on its own device."""
+        """Quantize an `nn.Linear` (weight (out, in)) on its own device (a
+        whole one: quantize a model before `shard_model` cuts it)."""
         w = lin.weight
         q = cls(lin.in_features, lin.out_features, bias=lin.bias is not None, bits=bits,
                 w8a8_min_seq=w8a8_min_seq, device=w.device, dtype=w.dtype)
@@ -121,18 +138,80 @@ class QuantLinear(nn.Module):
             q.kernel_q, q.scale = quantize_int8(w.t())
         if lin.bias is not None:
             q.bias.copy_(lin.bias)
+        if hasattr(lin, "logical_axes"):
+            q.logical_axes = lin.logical_axes
         return q
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias_cols: Optional[slice] = None) -> torch.Tensor:
+        """x @ the dequantized kernel (+ the bias, or its `bias_cols`)."""
         if self.bits == 4:
             y = int4_matmul(x, self.kernel_q4, self.scale_g)
-        elif self.w8a8_min_seq and x.dim() >= 2 and x.shape[-2] >= self.w8a8_min_seq:
+        elif self._w8a8(x):
             y = int8_w8a8_matmul(x, self.kernel_q, self.scale)
         else:
             y = int8_matmul(x, self.kernel_q, self.scale)
         if self.bias is not None:
-            y = y + self.bias.to(x.dtype)
+            bias = self.bias if bias_cols is None else self.bias[bias_cols]
+            y = y + bias.to(x.dtype)
         return y
+
+    def _w8a8(self, x: torch.Tensor) -> bool:
+        return bool(self.w8a8_min_seq and x.dim() >= 2 and x.shape[-2] >= self.w8a8_min_seq)
+
+    def row_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's partial product of a row-parallel layer (no bias),
+        x its block of the input (the int4 layout takes the whole input's
+        two runs of rows its packed block holds)."""
+        group = self.tp.group
+        if self.bits == 4:
+            half = self.kernel_q4.shape[0]
+            whole = all_gather_along(x.contiguous(), x.dim() - 1, group)
+            k = whole.shape[-1]
+            s = self.tp.index * half
+            g = int4_group(k)
+            xs = torch.cat([whole[..., s:s + half], whole[..., k // 2 + s:k // 2 + s + half]], -1)
+            sg = self.scale_g
+            gs, gn, gh = s // g, half // g, k // 2 // g
+            sg = torch.cat([sg[gs:gs + gn], sg[gh + gs:gh + gs + gn]], 0).contiguous()
+            return int4_matmul(xs.contiguous(), self.kernel_q4, sg)
+        if self._w8a8(x):
+            amax = all_reduce(x.reshape(-1, x.shape[-1]).float().abs().amax(-1, keepdim=True)
+                              .contiguous(), group, op="max")
+            return int8_w8a8_matmul(x, self.kernel_q, self.scale, amax=amax)
+        return int8_matmul(x, self.kernel_q, self.scale)
+
+
+def column_linear(lin: nn.Module, x: torch.Tensor, cols: Optional[slice]) -> torch.Tensor:
+    """A column-parallel product: the rank's output columns `cols` of a
+    layer whose kernel holds only them, its whole bias sliced to them."""
+    if cols is None or getattr(lin, "tp", None) is None:
+        return lin(x)
+    if isinstance(lin, QuantLinear):
+        return lin(x, bias_cols=cols)
+    return F.linear(x, lin.weight, None if lin.bias is None else lin.bias[cols])
+
+
+def row_linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product over x, the rank's block of the input: the
+    partial products summed over the tensor group in f32 (rounded to x's
+    dtype once, after the sum), then the bias."""
+    tp = getattr(lin, "tp", None)
+    if tp is None:
+        return lin(x)
+    if isinstance(lin, QuantLinear):
+        y = lin.row_parallel(x)
+    else:
+        y = F.linear(x, lin.weight)
+    y = reduce_from_tensor(y.float(), tp.group).to(x.dtype)
+    if lin.bias is not None:
+        y = y + lin.bias.to(y.dtype)
+    return y
+
+
+def named(module: nn.Module, axes) -> nn.Module:
+    """`module` carrying the JAX package's logical names of its kernel."""
+    module.logical_axes = tuple(axes)
+    return module
 
 
 def make_linear(cfg, in_features: int, out_features: int, bias: bool, w8a8: bool = True,
@@ -153,12 +232,15 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.plain_attention = False
+        # the tensor axis (`parallel.tensor.setup`): the heads this rank
+        # computes and its columns of q and of k / v
+        self.tp, self.local_heads, self.q_cols, self.kv_cols = None, None, None, None
         d, h, hkv, hd = (cfg.hidden_size, cfg.num_attention_heads,
                          cfg.num_key_value_heads, cfg.head_dim)
-        self.q_proj = make_linear(cfg, d, h * hd, True, **factory)
-        self.k_proj = make_linear(cfg, d, hkv * hd, True, **factory)
-        self.v_proj = make_linear(cfg, d, hkv * hd, True, **factory)
-        self.o_proj = make_linear(cfg, h * hd, d, False, **factory)
+        self.q_proj = named(make_linear(cfg, d, h * hd, True, **factory), ("embed", "heads"))
+        self.k_proj = named(make_linear(cfg, d, hkv * hd, True, **factory), ("embed", "heads"))
+        self.v_proj = named(make_linear(cfg, d, hkv * hd, True, **factory), ("embed", "heads"))
+        self.o_proj = named(make_linear(cfg, h * hd, d, False, **factory), ("heads", "embed"))
         if cfg.lora_rank > 0:
             r = cfg.lora_rank
             # (in, r) and (r, out), the JAX package's layout; PEFT init
@@ -167,14 +249,23 @@ class Attention(nn.Module):
             self.v_proj_lora_a = nn.Parameter(torch.randn(d, r, **factory) / r)
             self.v_proj_lora_b = nn.Parameter(torch.zeros(r, hkv * hd, **factory))
 
-    def _lora(self, name: str, x: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
-        """base + (alpha / r) * x @ A @ B, computed in f32."""
+    def _lora(self, name: str, x: torch.Tensor, base: torch.Tensor,
+              cols: Optional[slice] = None) -> torch.Tensor:
+        """base + (alpha / r) * x @ A @ B (B's columns `cols` under the
+        tensor axis), computed in f32."""
         if self.cfg.lora_rank <= 0:
             return base
         a = getattr(self, f"{name}_lora_a").float()
         b = getattr(self, f"{name}_lora_b").float()
+        if cols is not None:
+            b = b[:, cols]
         scale = self.cfg.lora_alpha / self.cfg.lora_rank
         return base + (x.float() @ a @ b * scale).to(base.dtype)
+
+    def heads(self):
+        """(query heads, KV heads) this rank computes."""
+        cfg = self.cfg
+        return self.local_heads or (cfg.num_attention_heads, cfg.num_key_value_heads)
 
     def forward(self, x, cos, sin, segment_ids: Optional[torch.Tensor],
                 layer_cache: Optional[Dict[str, torch.Tensor]] = None, cache_idx: int = 0,
@@ -185,10 +276,14 @@ class Attention(nn.Module):
         over its own block, any other call the masked f32 attention."""
         cfg = self.cfg
         b, l, _ = x.shape
-        h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = self._lora("q_proj", x, self.q_proj(x)).reshape(b, l, h, hd)
-        k = self.k_proj(x).reshape(b, l, hkv, hd)
-        v = self._lora("v_proj", x, self.v_proj(x)).reshape(b, l, hkv, hd)
+        (h, hkv), hd = self.heads(), cfg.head_dim
+        if self.tp is not None:
+            x = copy_to_tensor(x, self.tp.group)
+        q = self._lora("q_proj", x, column_linear(self.q_proj, x, self.q_cols),
+                       self.q_cols).reshape(b, l, h, hd)
+        k = column_linear(self.k_proj, x, self.kv_cols).reshape(b, l, hkv, hd)
+        v = self._lora("v_proj", x, column_linear(self.v_proj, x, self.kv_cols),
+                       self.kv_cols).reshape(b, l, hkv, hd)
         q = rope_ops.apply_rope(q, cos, sin)
         k = rope_ops.apply_rope(k, cos, sin)
         if layer_cache is not None:
@@ -205,7 +300,7 @@ class Attention(nn.Module):
             out = attend(q, k, v, causal=True, segment_ids=segment_ids)
         else:
             out = self._cached_attention(q, layer_cache, cache_idx, cache_seg, x.dtype)
-        return self.o_proj(out.reshape(b, l, h * hd))
+        return row_linear(self.o_proj, out.reshape(b, l, h * hd))
 
     def _cached_attention(self, q, layer_cache, cache_idx, cache_seg, dtype):
         """GQA-native masked attention of q (B, L, H, hd) over the cache's
@@ -221,9 +316,8 @@ class Attention(nn.Module):
             return torch.cat([
                 self._cached_attention(q[:, i:i + 1], layer_cache, cache_idx + i, cache_seg, dtype)
                 for i in range(l)], 1)
-        cfg = self.cfg
         b, l, h, hd = q.shape
-        hkv = cfg.num_key_value_heads
+        hkv = self.heads()[1]
         end = cache_idx + l
         ck, cv = layer_cache["k"][:, :end], layer_cache["v"][:, :end]
         if "k_scale" in layer_cache:
@@ -248,12 +342,15 @@ class MLP(nn.Module):
     def __init__(self, cfg: QwenTextConfig, **factory):
         super().__init__()
         d, f = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = make_linear(cfg, d, f, False, **factory)
-        self.up_proj = make_linear(cfg, d, f, False, **factory)
-        self.down_proj = make_linear(cfg, f, d, False, **factory)
+        self.tp = None
+        self.gate_proj = named(make_linear(cfg, d, f, False, **factory), ("embed", "mlp"))
+        self.up_proj = named(make_linear(cfg, d, f, False, **factory), ("embed", "mlp"))
+        self.down_proj = named(make_linear(cfg, f, d, False, **factory), ("mlp", "embed"))
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp is not None:
+            x = copy_to_tensor(x, self.tp.group)
+        return row_linear(self.down_proj, F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class DecoderLayer(nn.Module):
@@ -359,18 +456,34 @@ class QwenForCausalLM(nn.Module):
     def __init__(self, cfg: QwenTextConfig, remat: Any = "none", **factory):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory)
+        # the tensor axis: this rank's vocabulary rows [start, end) of the
+        # embedding and columns of the logits (`parallel.tensor.setup`)
+        self.tp, self.vocab_range = None, None
+        self.embed_tokens = named(nn.Embedding(cfg.vocab_size, cfg.hidden_size, **factory),
+                                  ("vocab", "embed"))
         self.model = QwenLM(cfg, remat=remat, **factory)
         if not cfg.tie_word_embeddings:
-            self.lm_head = make_linear(cfg, cfg.hidden_size, cfg.vocab_size, False,
-                                       w8a8=False, **factory)
+            self.lm_head = named(make_linear(cfg, cfg.hidden_size, cfg.vocab_size, False,
+                                             w8a8=False, **factory), ("embed", "vocab"))
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads a rank computes (its KV cache's)."""
+        return self.model.layers_0.self_attn.heads()[1]
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.vocab_range is not None:
+            return vocab_parallel_embedding(self.embed_tokens, input_ids, self.vocab_range[0],
+                                            self.tp.group)
         return self.embed_tokens(input_ids)
 
     def head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The logits (this rank's vocabulary columns under the tensor axis)."""
+        if self.tp is not None:
+            hidden = copy_to_tensor(hidden, self.tp.group)
         if self.cfg.tie_word_embeddings:
-            return hidden @ self.embed_tokens.weight.t()
+            with fsdp.gathered(self.embed_tokens):
+                return hidden @ self.embed_tokens.weight.t()
         return self.lm_head(hidden)
 
     def forward(self, input_ids=None, inputs_embeds=None, position_ids=None,
@@ -381,7 +494,7 @@ class QwenForCausalLM(nn.Module):
         (logits (B, 1, V)); `logits=False` skips the head (callers that read
         only the hidden states, such as the [SEG] gather)."""
         if inputs_embeds is None:
-            inputs_embeds = self.embed_tokens(input_ids)
+            inputs_embeds = self.embed(input_ids)
         inputs_embeds = inputs_embeds.to(self.embed_tokens.weight.dtype)
         b, l = inputs_embeds.shape[:2]
         if position_ids is None:

@@ -152,15 +152,21 @@ def _qwen_tensor(port_key: str, val: torch.Tensor, dtype: torch.dtype) -> torch.
     return val.to(dtype).contiguous()
 
 
-def load_qwen25vl_state_dict(model_dir: str, dtype: torch.dtype = torch.float32
-                             ) -> Dict[str, torch.Tensor]:
-    """A Qwen2.5-VL HF directory -> state dict of the port's `Qwen25VL`."""
-    out: Dict[str, torch.Tensor] = {}
+def iter_qwen25vl_state(model_dir: str, dtype: torch.dtype = torch.float32
+                        ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(state-dict key of the port's `Qwen25VL`, tensor) of a Qwen2.5-VL HF
+    directory, one tensor at a time (a safetensors shard is read tensor by
+    tensor, a torch .bin file whole)."""
     for key, val in iter_checkpoint(model_dir):
         port_key = map_hf_key(key)
         if port_key is not None:
-            out[port_key] = _qwen_tensor(port_key, val, dtype)
-    return out
+            yield port_key, _qwen_tensor(port_key, val, dtype)
+
+
+def load_qwen25vl_state_dict(model_dir: str, dtype: torch.dtype = torch.float32
+                             ) -> Dict[str, torch.Tensor]:
+    """A Qwen2.5-VL HF directory -> state dict of the port's `Qwen25VL`."""
+    return dict(iter_qwen25vl_state(model_dir, dtype))
 
 
 def load_unigr_state_dict(model_dir: str, dtype: torch.dtype = torch.float32

@@ -20,6 +20,7 @@ from ...device import DeviceLike, resolve_device
 from ...ops import losses as loss_ops
 from ...ops.resize import resize_bilinear, sam_normalize_maybe
 from ...ops.seg_gather import gather_seg_embeddings
+from ...parallel.tensor import vocab_parallel_cross_entropy
 from ..init import random_init_
 from ..qwen25vl.config import Qwen25VLConfig
 from ..qwen25vl.model import Qwen25VL
@@ -101,7 +102,10 @@ class UniGR(nn.Module):
         f32 tensor: the label count and the valid masks' count of these
         rows) over the ranks that hold the global batch's other rows (the
         JAX package normalises over the global batch); the losses are then
-        these rows' shares of the global losses."""
+        these rows' shares of the global losses. Over the tensor axis the
+        cross-entropy is vocab-parallel; the [SEG] hidden states are whole on
+        every rank after the LM's last row-parallel sum, so SAM2 and the
+        mask losses compute whole on each."""
         cfg = self.cfg.seg
         dev = self.device
         images_sam = torch.as_tensor(images_sam, device=dev)
@@ -121,8 +125,13 @@ class UniGR(nn.Module):
         if reduce is not None:
             ce_total, mask_total = reduce(torch.stack([loss_ops.label_count(labels),
                                                        loss_ops.masked_count(valid_bt)]))
-        ce_loss = loss_ops.cross_entropy_loss(out["logits"], labels,
-                                              total=ce_total) * cfg.ce_loss_weight
+        lm = self.qwen.lm
+        if lm.vocab_range is not None:  # the tensor axis: this rank's vocabulary columns
+            ce_loss = vocab_parallel_cross_entropy(out["logits"], labels, lm.vocab_range[0],
+                                                   lm.tp.group, total=ce_total)
+        else:
+            ce_loss = loss_ops.cross_entropy_loss(out["logits"], labels, total=ce_total)
+        ce_loss = ce_loss * cfg.ce_loss_weight
 
         lang = seg_emb[:, None].expand(b, t, cfg.out_dim).reshape(b * t, 1, cfg.out_dim)
         frames = sam_normalize_maybe(images_sam.reshape(b * t, *images_sam.shape[2:]))

@@ -285,16 +285,20 @@ def int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor) ->
 
 
 def int8_w8a8_matmul(x: torch.Tensor, kernel_q: torch.Tensor,
-                     scale: torch.Tensor) -> torch.Tensor:
+                     scale: torch.Tensor, amax: torch.Tensor = None) -> torch.Tensor:
     """W8A8: per-token absmax / 127 activation quantization, an s8 x s8 ->
     s32 product, dequantized by token scale x channel scale in f32.
     `torch._int_mm` needs M > 16 and K, N multiples of 8: the operands are
-    zero-padded to those, which changes no sum."""
+    zero-padded to those, which changes no sum. `amax` (M, 1) f32, when
+    given, is each token's absmax (over the whole K of a row-parallel
+    layer, of which x holds a block)."""
     refuse_grad("int8_w8a8_matmul", x)
     lead, k = x.shape[:-1], x.shape[-1]
     n = kernel_q.shape[1]
     xf = x.reshape(-1, k).float()
-    xs = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    if amax is None:
+        amax = xf.abs().amax(-1, keepdim=True)
+    xs = (amax / 127.0).clamp_min(1e-8)
     xq = torch.round(xf / xs).to(torch.int8)
     m = xq.shape[0]
     kp, np_ = k + (-k) % 8, n + (-n) % 8

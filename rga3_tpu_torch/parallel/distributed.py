@@ -11,8 +11,16 @@ process with none of these set is a no-op, as in the JAX package.
 
 Every collective of the port goes through the helpers here, which refuse a
 CPU tensor while NCCL is the backend: no collective quietly runs on the
-host. Each rank builds the same host batch (`sample_global` is a pure
-function of the index) and `put_global` gives it its rows; `host_local_slice`
+host. `init_distributed(..., backend="gloo")` takes gloo for CUDA tensors
+(two ranks that share one card, which NCCL refuses); gloo carries
+all-reduce and broadcast of a CUDA tensor, so there the helpers express an
+all-gather or a reduce-scatter of one through an all-reduce (a rank's block
+added to zeros is exact) and count it in `GLOO_CUDA_VIA_ALL_REDUCE`. The
+tensor axis's collectives that autograd differentiates (`copy_to_tensor`,
+`reduce_from_tensor`, `gather_from_tensor`) are here too.
+
+Each rank builds the same host batch (`sample_global` is a pure function
+of the index) and `put_global` gives it its rows; `host_local_slice`
 names them. `replicate_to_host` gathers a sharded state whole.
 """
 from __future__ import annotations
@@ -35,11 +43,12 @@ def _env_int(name: str) -> Optional[int]:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     device: DeviceLike = None) -> int:
+                     device: DeviceLike = None, backend: Optional[str] = None) -> int:
     """Join the run's process group and return this process's rank (0 when
     there is nothing to join). `device="cpu"` (or a CPU device) takes gloo
     on the CPU; otherwise NCCL on `cuda:<local rank>`, which raises without
-    CUDA. An initialised group is left as it is."""
+    CUDA, or gloo with CUDA tensors under `backend="gloo"` (ranks that share
+    a card). An initialised group is left as it is."""
     if dist.is_initialized():
         return dist.get_rank()
     address = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
@@ -62,8 +71,12 @@ def init_distributed(coordinator_address: Optional[str] = None,
         if local is None:
             local = rank % torch.cuda.device_count()
         torch.cuda.set_device(local)
-        dist.init_process_group("nccl", init_method=init_method, world_size=world, rank=rank,
-                                device_id=torch.device("cuda", local))
+        if backend == "gloo":
+            dist.init_process_group("gloo", init_method=init_method, world_size=world,
+                                    rank=rank)
+        else:
+            dist.init_process_group("nccl", init_method=init_method, world_size=world,
+                                    rank=rank, device_id=torch.device("cuda", local))
     elif dev.type == "cpu":
         dist.init_process_group("gloo", init_method=init_method, world_size=world, rank=rank)
     else:
@@ -112,13 +125,30 @@ def _on_backend(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: the tensor must be contiguous")
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum `t` in place over `group` (the world when None); nothing without
-    a process group."""
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """Sum (or with `op="max"` take the largest of) `t` in place over
+    `group` (the world when None); nothing without a process group."""
     if dist.is_initialized():
         _on_backend(t, "all_reduce")
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=group)
     return t
+
+
+# collectives of CUDA tensors under gloo that went through an all-reduce, by
+# name (gloo has no CUDA all-gather / reduce-scatter)
+GLOO_CUDA_VIA_ALL_REDUCE: Dict[str, int] = {}
+
+
+def _gloo_cuda(t: torch.Tensor, name: str) -> bool:
+    if t.is_cuda and dist.get_backend() == "gloo":
+        GLOO_CUDA_VIA_ALL_REDUCE[name] = GLOO_CUDA_VIA_ALL_REDUCE.get(name, 0) + 1
+        return True
+    return False
+
+
+def _group_index(group) -> int:
+    return dist.get_rank(group) if group is not None else dist.get_rank()
 
 
 def reduce_scatter_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -127,7 +157,12 @@ def reduce_scatter_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     src = t.detach().movedim(dim, 0).contiguous()
     _on_backend(src, "reduce_scatter")
-    out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=t.dtype, device=t.device)
+    per = src.shape[0] // n
+    if _gloo_cuda(src, "reduce_scatter"):
+        i = _group_index(group)
+        dist.all_reduce(src, group=group)
+        return src[i * per:(i + 1) * per].movedim(0, dim).contiguous()
+    out = torch.empty((per,) + src.shape[1:], dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -138,9 +173,75 @@ def all_gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     src = t.detach().movedim(dim, 0).contiguous()
     _on_backend(src, "all_gather")
+    if _gloo_cuda(src, "all_gather"):
+        i, per = _group_index(group), src.shape[0]
+        out = torch.zeros((per * n,) + src.shape[1:], dtype=t.dtype, device=t.device)
+        out[i * per:(i + 1) * per] = src
+        dist.all_reduce(out, group=group)
+        return out.movedim(0, dim).contiguous()
     out = torch.empty((src.shape[0] * n,) + src.shape[1:], dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the tensor axis's collectives under autograd (Megatron's f / g operators)
+# ---------------------------------------------------------------------------
+
+class _CopyToTensor(torch.autograd.Function):
+    """Identity forward; the gradient summed over the tensor group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """Sum over the tensor group forward; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    """The blocks of the tensor group joined along the last dim forward;
+    this rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        return all_gather_along(x, x.dim() - 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = _group_index(ctx.group)
+        return g[..., i * ctx.width:(i + 1) * ctx.width].contiguous(), None
+
+
+def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is, entering a column-parallel product (its gradient, partial
+    on each rank of `group`, is summed); x itself without a group."""
+    return x if group is None else _CopyToTensor.apply(x, group)
+
+
+def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over `group` of a row-parallel product's partial outputs."""
+    return x if group is None else _ReduceFromTensor.apply(x, group)
+
+
+def gather_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' blocks of `group` joined along the last dimension."""
+    return x if group is None else _GatherFromTensor.apply(x, group)
 
 
 def broadcast_scalar(value: Optional[float]) -> Optional[float]:

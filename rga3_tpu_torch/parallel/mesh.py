@@ -3,15 +3,19 @@
 
 Axes, as in the JAX package: `data` splits the batch and is the only axis
 that may cross nodes (one gradient all-reduce a step); `fsdp` shards the
-trainable state and the gradients (ZeRO-2: reduce-scatter and all-gather
-every step, so it stays inside a node's NVLink); `tensor` is the LM's tensor
-axis, which is not ported (`make_mesh` raises for tensor > 1). A node plays
-the part of a TPU slice: `mesh_rank_array` orders the ranks as the JAX
-package's `mesh_device_array` orders the devices of a multi-slice pod.
+trainable state, the gradients and the frozen weights (reduce-scatter and
+all-gather every step and every layer, so it stays inside a node's NVLink);
+`tensor` splits the LM's heads, MLP columns and vocabulary (Megatron-style
+layers, `parallel.tensor`: an all-reduce after every row-parallel product,
+so it stays inside a node as well). A node plays the part of a TPU slice:
+`mesh_rank_array` orders the ranks as the JAX package's `mesh_device_array`
+orders the devices of a multi-slice pod.
 
 `make_mesh(cfg)` gives a `Mesh`: the rank grid, this rank's coordinates and
-one process group for each axis (and the world). Without an initialised
-process group the mesh is one rank, and its collectives do nothing.
+one process group for each axis, for the ranks that hold the same rows
+("replica": data x fsdp at one tensor index) and for the world. Without an
+initialised process group the mesh is one rank, and its collectives do
+nothing.
 """
 from __future__ import annotations
 
@@ -23,10 +27,6 @@ import numpy as np
 import torch.distributed as dist
 
 from ..config import MeshConfig
-
-TENSOR_AXIS_TODO = ("the mesh's tensor axis is not ported (ROADMAP Queue 1 item 1: the "
-                    "tensor axis); use --mesh_tensor 1")
-
 
 def mesh_rank_array(cfg: MeshConfig, nodes: Sequence) -> np.ndarray:
     """(data, fsdp, tensor) array of ranks; `nodes[r]` names the node of
@@ -77,7 +77,8 @@ def batch_axes(shape: Dict[str, int], size: int):
 @dataclass
 class Mesh:
     """The rank grid of `cfg` (`ranks[d, f, t]`), this process's `rank`,
-    and the process groups this rank belongs to along "data", "fsdp" and
+    and the process groups this rank belongs to along "data", "fsdp",
+    "tensor", "replica" (data x fsdp: the ranks of its tensor index) and
     "world" (none without an initialised process group)."""
 
     cfg: MeshConfig
@@ -99,12 +100,14 @@ class Mesh:
         return int(d), int(f), int(t)
 
     def group(self, axes) -> Optional[object]:
-        """The process group of `axes` ("data", "fsdp", ("data", "fsdp") or
-        None) that holds this rank; None for no axes or one process."""
+        """The process group of `axes` ("data", "fsdp", "tensor", ("data",
+        "fsdp") or None) that holds this rank; None for no axes or one
+        process. ("data", "fsdp") is the ranks of this rank's tensor index
+        (the world when tensor is 1)."""
         if axes is None:
             return None
         if isinstance(axes, tuple):
-            axes = "world" if len(axes) > 1 else axes[0]
+            axes = "replica" if len(axes) > 1 else axes[0]
         return self.groups.get(axes)
 
     def rows(self, size: int) -> Tuple[slice, Optional[str]]:
@@ -159,20 +162,32 @@ def make_mesh(cfg: Optional[MeshConfig] = None, nodes: Optional[Sequence] = None
     if nodes is None:
         nodes = node_names()
     cfg = cfg or default_config(nodes)
-    if cfg.tensor > 1:
-        raise NotImplementedError(TENSOR_AXIS_TODO)
     ranks = mesh_rank_array(cfg, nodes)
     if not dist.is_initialized():
         return Mesh(cfg, ranks)
     rank = dist.get_rank()
     groups = {"world": dist.group.WORLD}
     # every rank creates every group, in one order
-    for f in range(cfg.fsdp):
-        g = dist.new_group([int(r) for r in ranks[:, f, 0]])
-        if rank in ranks[:, f, 0]:
-            groups["data"] = g
+    for t in range(cfg.tensor):
+        for f in range(cfg.fsdp):
+            g = dist.new_group([int(r) for r in ranks[:, f, t]])
+            if rank in ranks[:, f, t]:
+                groups["data"] = g
+    for t in range(cfg.tensor):
+        for d in range(cfg.data):
+            g = dist.new_group([int(r) for r in ranks[d, :, t]])
+            if rank in ranks[d, :, t]:
+                groups["fsdp"] = g
     for d in range(cfg.data):
-        g = dist.new_group([int(r) for r in ranks[d, :, 0]])
-        if rank in ranks[d, :, 0]:
-            groups["fsdp"] = g
+        for f in range(cfg.fsdp):
+            g = dist.new_group([int(r) for r in ranks[d, f, :]])
+            if rank in ranks[d, f, :]:
+                groups["tensor"] = g
+    if cfg.tensor == 1:
+        groups["replica"] = groups["world"]
+    else:
+        for t in range(cfg.tensor):
+            g = dist.new_group([int(r) for r in ranks[:, :, t].reshape(-1)])
+            if rank in ranks[:, :, t]:
+                groups["replica"] = g
     return Mesh(cfg, ranks, rank, groups)

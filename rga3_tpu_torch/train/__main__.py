@@ -34,18 +34,28 @@ never reads it.
 
 Across ranks (the JAX script's mesh and multi-host flags, or torchrun's
 environment; `parallel.init_distributed`: NCCL on `cuda:<local rank>`, gloo
-under `--device cpu`) the ranks form a (data, fsdp) mesh (`--mesh_fsdp 0`:
-the ranks left; `--mesh_tensor` > 1 raises, not ported). As in the JAX
-script, an epoch holds `data` times the samples and a global micro-batch
-`data` x `--micro_batch_size` rows; each rank collates only its rows of it
-(`parallel.put_global` of the global indices, `batch_axes`' split; every
-rank takes every row when the ranks do not divide them), with the vision
-budget of its rows. The losses are normalised over the global micro-batch
-(`train_forward(reduce=...)`), the gradients summed over the ranks once a
-step, and the trainable state sharded over fsdp (ZeRO-2, `MaskedAdamW`).
-Rank 0 logs, writes `--loss_log`, TensorBoard and the checkpoints, and runs
+under `--device cpu`) the ranks form a (data, fsdp, tensor) mesh
+(`--mesh_fsdp 0`: the ranks left). As in the JAX script, an epoch holds
+`data` times the samples and a global micro-batch `data` x
+`--micro_batch_size` rows; each rank collates only its rows of it
+(`parallel.put_global` of the global indices, `batch_axes`' split over
+data and fsdp; every tensor rank of a row holder takes its rows, and every
+rank every row when the ranks do not divide them), with the vision budget
+of its rows. The model is built on the meta device and cut to the rank's
+blocks (`parallel.fsdp.shard_model`: the LM tensor-parallel over
+`--mesh_tensor`, every frozen leaf of a gathered block over fsdp), then
+each leaf is drawn, or read from `--model_dir` (tensor by tensor from
+safetensors shards, a torch .bin file at a time), whole on the host and
+only the rank's block kept (`load_pretrained`), so no rank holds the whole
+base; `--sam_pretrained` is read whole (0.9 GB in f32 at Hiera-L). The losses are normalised over the
+global micro-batch (`train_forward(reduce=...)`), the gradients summed over
+the ranks once a step, and the trainable state sharded over fsdp (ZeRO-2,
+`MaskedAdamW`). Rank 0 logs, writes `--loss_log`, TensorBoard and the
+checkpoints (whole tensors, gathered over fsdp and tensor), and reports
 the val loop, whose metric it broadcasts so that every rank agrees on
-"best". MFU is each rank's against one card's peak.
+"best"; with a sharded model every rank runs the val loop with it (the
+sharded layers compute together), otherwise rank 0 alone. MFU is each
+rank's against one card's peak.
 """
 from __future__ import annotations
 
@@ -57,7 +67,7 @@ import sys
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -69,7 +79,7 @@ from ..data.datasets import ImgVidHybridDataset
 from ..data.prefetch import PrefetchLoader
 from ..data.processor import QwenVLProcessor
 from ..device import resolve_device
-from ..models.qwen25vl.loader import load_qwen25vl_state_dict
+from ..models.qwen25vl.loader import iter_qwen25vl_state
 from ..models.sam2.config import Sam2Config, tiny_sam2_config
 from ..models.sam2.loader import load_sam2_state_dict
 from ..models.unigr.build import QWEN_SIZES, qwen_config
@@ -78,7 +88,8 @@ from ..parallel.distributed import (
     all_reduce, broadcast_scalar, init_distributed, is_main, put_global, rank0_print,
     rank_device, world_size,
 )
-from ..parallel.mesh import TENSOR_AXIS_TODO, make_mesh
+from ..parallel.fsdp import shard_model
+from ..parallel.mesh import make_mesh
 from ..utils.flops import unigr_train_step_flops
 from ..utils.meters import AverageMeter, ProgressMeter
 from ..utils.profiling import annotate, mfu, trace
@@ -100,6 +111,30 @@ def _check_u8(frames: np.ndarray) -> np.ndarray:
 
 
 @torch.no_grad()
+def load_pretrained(model: torch.nn.Module,
+                    entries: Iterable[Tuple[str, torch.Tensor]]) -> Set[str]:
+    """Copy each (state-dict key, whole tensor) of `entries` that `model`
+    has at that whole shape into it, one entry at a time (a model cut by
+    `shard_model` keeps the rank's block), so that a generator of entries
+    is never held whole. Returns the keys copied."""
+    plan = getattr(model, "shard_plan", None)
+    state = model.state_dict()
+    done = set()
+    for key, src in entries:
+        t = state.get(key)
+        if t is None:
+            continue
+        if plan is None and tuple(src.shape) == tuple(t.shape):
+            t.copy_(src)
+        elif plan is not None and tuple(src.shape) == plan.blocks[key].full_shape:
+            plan.load_(model, key, src)
+        else:
+            continue
+        done.add(key)
+    return done
+
+
+@torch.no_grad()
 def assemble_params(model: torch.nn.Module, loaded: Optional[Dict[str, torch.Tensor]] = None,
                     workers: int = 8, keep: Callable[[str], bool] = lambda key: False,
                     skip: Callable[[str], bool] = lambda key: False) -> Dict[str, torch.Tensor]:
@@ -110,22 +145,26 @@ def assemble_params(model: torch.nn.Module, loaded: Optional[Dict[str, torch.Ten
     N(0, 0.02) from `np.random.default_rng(crc32(flax path))` in float64,
     cast to f32, then to the model's dtype. Leaves are drawn on `workers`
     threads (numpy's generators release the GIL). Entries that `skip`
-    selects are left as they are (a resumed run restores them). Returns the
-    f32 draws of the entries `keep` selects, on the host (what the model
-    holds rounded, where its dtype is narrower)."""
-    loaded = loaded or {}
+    selects are left as they are (a resumed run restores them). A model cut
+    by `shard_model` keeps the rank's block of each whole leaf. Returns the
+    f32 draws of the entries `keep` selects (the rank's tensor block), on
+    the host (what the model holds rounded, where its dtype is narrower)."""
+    plan = getattr(model, "shard_plan", None)
     kept: Dict[str, torch.Tensor] = {}
+    done = load_pretrained(model, (loaded or {}).items())
     todo = []
+
+    def local(key, x):
+        return x if plan is None else plan.local(key, x)
+
     for key, t in model.state_dict().items():
-        src = loaded.get(key)
-        if src is not None and tuple(src.shape) == tuple(t.shape):
-            t.copy_(src)
-        elif not skip(key):
-            todo.append((key, t))
+        if key not in done and not skip(key):
+            shape = tuple(t.shape) if plan is None else plan.blocks[key].full_shape
+            todo.append((key, t, shape))
 
     def draw(item):
-        key, t = item
-        path, shape = flax_path_and_shape(model, key, tuple(t.shape))
+        key, t, whole = item
+        path, shape = flax_path_and_shape(model, key, whole)
         leaf = path[-1]
         if leaf.endswith("lora_b") or "bias" in leaf:
             t.zero_()
@@ -135,9 +174,9 @@ def assemble_params(model: torch.nn.Module, loaded: Optional[Dict[str, torch.Ten
             rng = np.random.default_rng(zlib.crc32("/".join(path).encode()))
             x = rng.normal(0, 0.02, shape).astype(np.float32)
             x = torch.from_numpy(np.ascontiguousarray(torch_leaf(path, x)))
-            t.copy_(x)
+            t.copy_(local(key, x))
             if keep(key):
-                kept[key] = x
+                kept[key] = x if plan is None else plan.tensor_block(key, x).clone()
 
     with ThreadPoolExecutor(max(1, workers)) as ex:
         list(ex.map(draw, todo))
@@ -172,7 +211,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--bce_loss_weight", type=float, default=2.0)
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_fsdp", type=int, default=0, help="0 = all remaining ranks")
-    p.add_argument("--mesh_tensor", type=int, default=1, help="only 1: not ported")
+    p.add_argument("--mesh_tensor", type=int, default=1,
+                   help="the LM's tensor-parallel ranks (heads, MLP columns, vocabulary)")
     # the launch of several processes (torchrun's environment works too);
     # also read from COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID
     p.add_argument("--coordinator_address", default=None,
@@ -211,13 +251,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
-def build(args, device: torch.device, resuming: bool = False):
+def build(args, device: torch.device, resuming: bool = False, mesh=None):
     """(the UniGR of `args`, bf16, its parameters from `--model_dir` /
     `--sam_pretrained` and `assemble_params`; its processor; under
     `--param_dtype float32` the f32 draws of the trainable tensors, and the
     SAM2 mask decoder and `text_hidden_fcs` held in f32).
     `resuming`: the trainable tensors are not drawn (the checkpoint holds
-    them)."""
+    them). Over a `mesh` of more than one rank the model is built on the
+    meta device and cut to this rank's blocks on `device` first."""
     proc = QwenVLProcessor.from_pretrained(args.model_dir)
     qcfg = qwen_config(args.model_size)
     qcfg = qcfg.replace(text=qcfg.text.replace(lora_rank=args.lora_r,
@@ -227,33 +268,43 @@ def build(args, device: torch.device, resuming: bool = False):
         out_dim=scfg.d_model, seg_token_id=proc.seg_token_id,
         ce_loss_weight=args.ce_loss_weight, dice_loss_weight=args.dice_loss_weight,
         bce_loss_weight=args.bce_loss_weight))
-    model = UniGR(cfg, device=device, dtype=torch.bfloat16, remat=args.remat)
+    sharded = mesh is not None and mesh.size > 1
+    model = UniGR(cfg, device="meta" if sharded else device, dtype=torch.bfloat16,
+                  remat=args.remat)
     if args.param_dtype == "float32":
         # JAX's f32 parameters promote these modules' bf16 inputs to f32;
         # cast before the draws, which then land in f32 unrounded
         model.grounding_encoder.sam_mask_decoder.float()
         model.text_hidden_fcs.float()
-    loaded: Dict[str, torch.Tensor] = {}
-    if args.model_dir != "dummy":
-        rank0_print("loading pretrained weights...")
-        try:
-            loaded.update(("qwen." + k, v) for k, v in
-                          load_qwen25vl_state_dict(args.model_dir, torch.bfloat16).items())
-        except FileNotFoundError:
-            rank0_print("no checkpoint found: random-initializing the LLM")
-    if args.sam_pretrained:
-        loaded.update(("grounding_encoder." + k, v) for k, v in
-                      load_sam2_state_dict(args.sam_pretrained).items())
     def trainable(key):
         return any(pat in key for pat in DEFAULT_TRAINABLE_PATTERNS)
 
+    if sharded:
+        shard_model(model, mesh, trainable=trainable, device=device)
+
+    def pretrained():
+        n = 0
+        if args.model_dir != "dummy":
+            rank0_print("loading pretrained weights...")
+            try:
+                for k, v in iter_qwen25vl_state(args.model_dir, torch.bfloat16):
+                    n += 1
+                    yield "qwen." + k, v
+            except FileNotFoundError:
+                if n:  # a shard of a checkpoint that was found is missing
+                    raise
+                rank0_print("no checkpoint found: random-initializing the LLM")
+        if args.sam_pretrained:
+            yield from (("grounding_encoder." + k, v) for k, v in
+                        load_sam2_state_dict(args.sam_pretrained).items())
+
     t0 = time.perf_counter()
+    done = load_pretrained(model, pretrained())
     # the trainable tensors' f32 draws start their masters
     masters = assemble_params(
-        model, loaded, workers=min(8, os.cpu_count() or 1),
+        model, workers=min(8, os.cpu_count() or 1),
         keep=lambda key: args.param_dtype == "float32" and trainable(key),
-        skip=lambda key: resuming and trainable(key))
-    del loaded
+        skip=lambda key: key in done or (resuming and trainable(key)))
     rank0_print(f"params assembled in {time.perf_counter() - t0:.1f}s")
     return model, proc, masters
 
@@ -368,8 +419,6 @@ def main(argv: Optional[Sequence[str]] = None,
     device), the `mesh`, this rank's `rows` of a global micro-batch and the
     `step` function."""
     args = parse_args(argv)
-    if args.mesh_tensor > 1:
-        raise NotImplementedError(TENSOR_AXIS_TODO)
     # join the ranks before anything else touches the card
     init_distributed(args.coordinator_address, args.num_processes, args.process_id,
                      device=args.device)
@@ -391,7 +440,7 @@ def main(argv: Optional[Sequence[str]] = None,
 
     ckpt = CheckpointManager(args.ckpt_dir)
     start_epoch = ckpt.resume_epoch() if args.auto_resume else 0
-    model, proc, masters = build(args, device, resuming=start_epoch > 0)
+    model, proc, masters = build(args, device, resuming=start_epoch > 0, mesh=mesh)
     cfg = model.cfg
 
     train_ds = ImgVidHybridDataset(
@@ -447,18 +496,23 @@ def main(argv: Optional[Sequence[str]] = None,
     # of MB of host memory
     loader = PrefetchLoader(make_accum_batch, num_workers=args.data_workers, buffer_size=2)
 
-    def rank0_val(label) -> Optional[float]:
+    def rank0_val(label, report: bool = True) -> Optional[float]:
         """ReasonSeg-val gIoU / cIoU; None when the split is not on disk. A
-        failure inside val (a missing label file, the model) raises."""
+        failure inside val (a missing label file, the model) raises.
+        `report=False`: only the computation (another rank of a sharded
+        model)."""
         from ..evaluation.image_seg_eval import reason_seg_images, run_reason_seg_val
         from ..evaluation.segmentor import UniGRSegmentor
 
         if not reason_seg_images(args.dataset_dir):
-            print("val skipped: no ReasonSeg val split", flush=True)
+            if report:
+                print("val skipped: no ReasonSeg val split", flush=True)
             return None
         t0 = time.perf_counter()
         seg = UniGRSegmentor(model, proc, num_frames_mllm=args.num_frames_mllm)
         scores = run_reason_seg_val(seg, args.dataset_dir, max_samples=args.val_samples)
+        if not report:
+            return None
         _sync(device)
         summary["val"].append((label, scores, time.perf_counter() - t0))
         print(f"val {label}: {scores}", flush=True)
@@ -467,11 +521,18 @@ def main(argv: Optional[Sequence[str]] = None,
             writer.add_scalar("val/cIoU", scores["cIoU"], label)
         return scores["gIoU"]
 
+    plan = getattr(model, "shard_plan", None)
+    # a model cut to blocks runs the val loop on every rank, together
+    together = plan is not None and any(b.tensor is not None or b.fsdp_stored
+                                        for b in plan.blocks.values())
+
     def run_val(label) -> Optional[float]:
-        """Rank 0's val metric on every rank (the others wait for it; every
-        rank holds the whole model). A failure on rank 0 raises there and,
-        through an infinite metric, on every other rank."""
+        """Rank 0's val metric on every rank (the others wait for it, or run
+        it with rank 0 where the model is sharded). A failure on rank 0
+        raises there and, through an infinite metric, on every other rank."""
         metric = None
+        if together and not is_main():
+            rank0_val(label, report=False)
         if is_main():
             try:
                 metric = rank0_val(label)

@@ -19,11 +19,12 @@ port's own file format:
   * `restore` raises ValueError when the file's names, shapes or dtypes
     differ from the state's.
 
-Over a mesh of ranks (`MaskedAdamW` sharded over fsdp) the file is the same:
-whole tensors. Every rank gathers the blocks together, rank 0 writes the
+Over a mesh of ranks (`MaskedAdamW` sharded over fsdp, `embed_tokens` and
+`lm_head` over tensor) the file is the same: whole tensors. Every rank
+gathers the blocks together (over fsdp, then tensor), rank 0 writes the
 file, the meta and the best link, and a `barrier` holds the others until it
 has. Every rank restores by reading the file and taking its own blocks, so a
-checkpoint written at one world size resumes at another.
+checkpoint written at one (data, fsdp, tensor) resumes at any other.
 """
 from __future__ import annotations
 
@@ -55,10 +56,10 @@ def _local(opt, name: str, kind: str) -> torch.Tensor:
 
 def state_tensors(state) -> Dict[str, torch.Tensor]:
     """{checkpoint name: whole tensor} of a `TrainState`'s trainable state
-    (gathered over fsdp where the optimizer shards it: every rank calls it
-    together)."""
+    (gathered over fsdp and tensor where the optimizer shards it: every
+    rank calls it together)."""
     opt = state.opt
-    return {key: opt.full(name, _local(opt, name, kind)) for key, name, kind in _names(opt)}
+    return {key: opt.whole(name, _local(opt, name, kind)) for key, name, kind in _names(opt)}
 
 
 class CheckpointManager:
@@ -130,6 +131,8 @@ class CheckpointManager:
             shape = list(t.shape)  # the whole tensor's, of this rank's block
             if opt.dims[name] is not None:
                 shape[opt.dims[name]] *= opt.mesh.shape["fsdp"]
+            if name in opt.tensor_sharded:
+                shape = list(opt.plan.blocks[name].full_shape)
             if list(e["shape"]) != shape or dtype != t.dtype:
                 problems.append(f"{key}: {e['dtype']} {e['shape']} in the file, "
                                 f"{t.dtype} {shape} in the state")
@@ -137,12 +140,13 @@ class CheckpointManager:
             raise ValueError(f"{path} does not match the train state: {problems[:5]}")
         for key, t in safetensors_io.iter_file(path):
             name, kind = want[key]
+            t = opt.tensor_block(name, t)
             if kind != "value":
                 _local(opt, name, kind).copy_(opt.shard(name, t))
                 continue
             if name in opt.master:
                 opt.master[name].copy_(opt.shard(name, t))
-            opt.params[name].copy_(t)  # whole, rounded from its master
+            opt.params[name].copy_(t)  # whole over fsdp, rounded from its master
         meta = safetensors_io.read_metadata(path)
         opt.count, state.step = int(meta["count"]), int(meta["step"])
         return state

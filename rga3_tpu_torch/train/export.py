@@ -38,6 +38,7 @@ import torch
 
 from ..models.qwen25vl.loader import hf_key
 from ..models.sam2.loader import reference_state_dict
+from ..parallel.fsdp import whole_state_dict
 from ..utils import safetensors_io
 
 EXPORT_FILE = "model.safetensors"
@@ -71,14 +72,14 @@ def merge_lora(sd: Dict[str, torch.Tensor], lora_alpha: float, lora_rank: int
 
 def _source(model_or_state) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
     """(the model, its state dict with the f32 masters where a state keeps
-    them: whole, gathered where the optimizer shards them, so that every
-    rank of a sharded run calls it together)."""
+    them: whole, gathered where the optimizer or the shard plan cuts them,
+    so that every rank of a sharded run calls it together)."""
     if hasattr(model_or_state, "opt"):
         model, opt = model_or_state.model, model_or_state.opt
-        sd = dict(model.state_dict())
-        sd.update((name, opt.full(name)) for name in opt.master)
+        sd = whole_state_dict(model)
+        sd.update((name, opt.whole(name)) for name in opt.master)
         return model, sd
-    return model_or_state, dict(model_or_state.state_dict())
+    return model_or_state, whole_state_dict(model_or_state)
 
 
 def merged_state_dict(model_or_state) -> Dict[str, torch.Tensor]:

@@ -24,7 +24,10 @@ arithmetic:
 
 The global norm is summed in f32 (optax sums each leaf in its own dtype).
 Over a mesh of ranks `MaskedAdamW` is ZeRO-2: each rank keeps its fsdp
-block of the state (see the class).
+block of the state (see the class); `build_optimizer` first cuts the model
+to the rank's blocks (`parallel.fsdp.shard_model`: the frozen weights over
+fsdp, the LM's named leaves over tensor), as the JAX package's
+`make_train_state(..., mesh)` shards every leaf.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch.nn as nn
 
 from ..config import TrainConfig
 from ..parallel.distributed import all_gather_along, all_reduce, reduce_scatter_along
-from ..parallel.sharding import infer_param_sharding
+from ..parallel.fsdp import shard_model
 
 DEFAULT_TRAINABLE_PATTERNS: Tuple[str, ...] = (
     "lora_a",
@@ -97,15 +100,19 @@ class MaskedAdamW:
     the parameter (or its master) in f32 and rounded to its dtype. `state`
     holds `count`, `mu`, `nu` and `master`.
 
-    Over a `mesh` of ranks (`parallel.make_mesh`) it is ZeRO-2: each rank
-    holds and updates only its fsdp block of every tensor that
-    `infer_param_sharding` gives a dimension (its master, `mu` and `nu`;
-    `dims[name]`), and whole copies of the rest. `sync_grads` sums the
-    gradients over the ranks once a step (reduce-scatter over fsdp along
-    that dimension, else all-reduce; all-reduce over data) and divides by
-    the ranks that hold each row; the global norm counts every element
-    once; after the update each sharded parameter is all-gathered whole.
-    Elementwise, a block's update is the whole tensor's."""
+    Over a `mesh` of ranks (`parallel.make_mesh`; the model cut by
+    `parallel.fsdp.shard_model`) it is ZeRO-2: each rank holds and updates
+    only its fsdp block of every tensor that the sharding rule gives an
+    fsdp dimension (its master, `mu` and `nu`; `dims[name]`), and whole
+    copies of the rest, within the rank's tensor block of a tensor-sharded
+    one (`embed_tokens`, `lm_head`). `sync_grads` sums the gradients over
+    the ranks once a step (over tensor first for the LoRA factors, whose
+    gradient each tensor rank holds in part; then reduce-scatter over fsdp
+    along the fsdp dimension, else all-reduce, over the ranks of this
+    tensor index; all-reduce over data) and divides by the ranks that hold
+    each row; the global norm counts every element once; after the update
+    each sharded parameter is all-gathered whole over fsdp. Elementwise, a
+    block's update is the whole tensor's."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
                  master_init: Dict[str, torch.Tensor] = None,
@@ -116,9 +123,17 @@ class MaskedAdamW:
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.count = 0
         self.mesh = mesh if mesh is not None and mesh.groups else None
+        self.plan = getattr(model, "shard_plan", None)
         self.dims: Dict[str, Optional[int]] = {n: None for n in self.params}
+        # tensor-sharded tensors (the rank's block) and partial gradients
+        self.tensor_sharded, self.partial = set(), set()
         if self.mesh is not None:
-            self.dims = infer_param_sharding(model, self.mesh, self.params)
+            if self.plan is None:
+                raise ValueError("a mesh's optimizer needs the model cut by shard_model")
+            blocks = self.plan.blocks
+            self.dims = {n: blocks[n].fsdp_dim for n in self.params}
+            self.tensor_sharded = {n for n in self.params if blocks[n].tensor is not None}
+            self.partial = self.plan.partial & set(self.params)
             self.fsdp_index = self.mesh.coords[1]
         # a master starts from `master_init` where given (the values before
         # rounding to the model's dtype), else from the parameter; a
@@ -150,13 +165,24 @@ class MaskedAdamW:
         return self.master.get(name, self.shard(name, self.params[name]))
 
     def full(self, name: str, t: torch.Tensor = None) -> torch.Tensor:
-        """The whole tensor of `name` from this rank's block `t` (default:
-        `value(name)`), gathered over fsdp where it is sharded (every rank
-        calls it together)."""
+        """The rank's tensor block of `name` (the whole tensor without the
+        tensor axis) from its fsdp block `t` (default: `value(name)`),
+        gathered over fsdp where it is sharded (every rank calls it
+        together)."""
         t = self.value(name) if t is None else t
         if self.dims[name] is None:
             return t
         return all_gather_along(t, self.dims[name], self.mesh.group("fsdp"))
+
+    def whole(self, name: str, t: torch.Tensor = None) -> torch.Tensor:
+        """The whole tensor of `name` from this rank's block `t`, gathered
+        over fsdp and tensor (every rank calls it together)."""
+        t = self.full(name, t)
+        return t if name not in self.tensor_sharded else self.plan.tensor_whole(name, t)
+
+    def tensor_block(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor block of a whole tensor of `name` (a view)."""
+        return whole if name not in self.tensor_sharded else self.plan.tensor_block(name, whole)
 
     @torch.no_grad()
     def accumulate(self) -> None:
@@ -184,22 +210,36 @@ class MaskedAdamW:
     def sync_grads(self, replicas: int = 1) -> None:
         """Sum the gradients over the mesh's ranks and divide by `replicas`,
         the ranks that held each row (one call a step; a no-op without a
-        mesh). A tensor without a gradient counts as zeros, so that every
-        rank makes the same collectives."""
+        mesh): the gradients the tensor ranks hold in part summed over
+        tensor, those every tensor rank holds whole averaged over it, the
+        tensor blocks left alone. A tensor without a gradient counts as
+        zeros, so that every rank makes the same collectives."""
         if self.mesh is None:
             return
         fsdp, data = self.mesh.group("fsdp"), self.mesh.group("data")
+        replica, tensor = self.mesh.group(("data", "fsdp")), self.mesh.group("tensor")
+        # every tensor rank holds each row: the rows' other holders are in
+        # this rank's data x fsdp ranks
+        t = self.mesh.shape["tensor"]
+        div = replicas // t
         for name, g in self.grads().items():
             if g is None:
                 w = self.params[name]
                 g = torch.zeros(w.shape, dtype=self.value(name).dtype, device=w.device)
+            if name in self.partial:
+                g = all_reduce(g, tensor)
+            elif t > 1 and name not in self.tensor_sharded:
+                # every tensor rank computed this whole gradient, and a kernel
+                # that adds with atomics rounds it differently on each: their
+                # mean keeps the copies equal (exact at tensor 2 where they agree)
+                g = all_reduce(g, tensor).div_(t)
             dim = self.dims[name]
             if dim is None:
-                g = all_reduce(g, self.mesh.group("world"))
+                g = all_reduce(g, replica)
             else:
                 g = all_reduce(reduce_scatter_along(g, dim, fsdp), data)
-            if replicas > 1:
-                g.div_(replicas)
+            if div > 1:
+                g.div_(div)
             self.synced[name] = g
 
     def zero_grad(self) -> None:
@@ -210,21 +250,28 @@ class MaskedAdamW:
 
     @torch.no_grad()
     def global_norm(self) -> torch.Tensor:
-        """The gradients' L2 norm, each element counted once: the blocks of
-        sharded tensors summed over fsdp, the whole ones once."""
+        """The gradients' L2 norm, each element counted once: the fsdp
+        blocks summed over fsdp, the tensor blocks over tensor, the whole
+        ones once."""
         grads = self.grads()
         dev = next(iter(self.params.values())).device
 
-        def sq(names):
-            parts = [grads[n].float().square().sum() for n in names if grads[n] is not None]
+        def sq(fsdp: bool, tensor: bool):
+            parts = [grads[n].float().square().sum() for n in grads
+                     if grads[n] is not None and (self.dims[n] is not None) == fsdp
+                     and (n in self.tensor_sharded) == tensor]
             return torch.stack(parts).sum() if parts else torch.zeros((), device=dev)
 
-        whole = sq([n for n in grads if self.dims[n] is None])
+        whole = sq(False, False)
         if self.mesh is None:
             return whole.sqrt()
-        blocks = all_reduce(sq([n for n in grads if self.dims[n] is not None]),
+        blocks = all_reduce(torch.stack([sq(True, False), sq(True, True)]),
                             self.mesh.group("fsdp"))
-        return (blocks + whole).sqrt()
+        total = blocks[0] + whole
+        if self.tensor_sharded:
+            total = total + all_reduce((sq(False, True) + blocks[1]).contiguous(),
+                                       self.mesh.group("tensor"))
+        return total.sqrt()
 
     @torch.no_grad()
     def step(self) -> Dict[str, float]:
@@ -263,9 +310,13 @@ class MaskedAdamW:
 
 def build_optimizer(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtype = None,
                     master_init: Dict[str, torch.Tensor] = None, mesh=None) -> MaskedAdamW:
-    """Mark the trainable parameters (`trainable_mask`) and build the masked
-    AdamW over them (with `master_dtype` masters, from `master_init` where
-    it has the tensor; a parameter already in that dtype is its own; the
-    state sharded over `mesh`'s fsdp axis)."""
-    trainable_mask(model)
+    """Mark the trainable parameters (`trainable_mask`), cut the model to the
+    rank's blocks over `mesh` (`shard_model`, unless it was cut already)
+    and build the masked AdamW over them (with `master_dtype` masters, from
+    `master_init` where it has the tensor (the rank's tensor block); a
+    parameter already in that dtype is its own; the state sharded over
+    `mesh`'s fsdp axis)."""
+    mask = trainable_mask(model)
+    if mesh is not None and mesh.groups and getattr(model, "shard_plan", None) is None:
+        shard_model(model, mesh, trainable=mask.get)
     return MaskedAdamW(cfg, model, master_dtype, master_init, mesh=mesh)

@@ -43,7 +43,9 @@ def make_train_state(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dty
                      ) -> Tuple[TrainState, MaskedAdamW]:
     """Mark the trainable parameters and build the optimizer over them
     (`MaskedAdamW`'s masters in `master_dtype`, from `master_init`; its
-    state sharded over `mesh`'s fsdp axis)."""
+    state sharded over `mesh`'s fsdp axis). Over a mesh the model is cut to
+    the rank's blocks first (`parallel.fsdp.shard_model`: the frozen
+    weights over fsdp, the LM over tensor), unless it was cut already."""
     opt = build_optimizer(cfg, model, master_dtype, master_init, mesh=mesh)
     return TrainState(model, opt), opt
 

@@ -7,7 +7,7 @@ device.
   `tests/test_mesh_topology.py` (a node for a slice), including its refusal
   of fsdp across nodes;
 * `infer_param_sharding` gives every trainable tensor of the tiny UniGR the
-  dimension JAX's shards, at fsdp 2, 4 and 8 (JAX on the 8 virtual CPU
+  fsdp dimension JAX's shards, at fsdp 2, 4 and 8 (JAX on the 8 virtual CPU
   devices): the dimension is checked through the weight bridge's own layout
   transform, by converting an array that counts along JAX's dimension;
 * 2 gloo ranks over (data 2) and over (fsdp 2), grad accum 1 and 2, 2
@@ -34,8 +34,7 @@ device.
   bit for bit by both ranks into a fresh sharded state and by one process
   into an unsharded one;
 * `AverageMeter.all_reduce`, `broadcast_scalar`, `replicate_to_host` and
-  the row split over 2 ranks; `--mesh_tensor > 1` raises
-  NotImplementedError;
+  the row split over 2 ranks; the rank grid of a mesh with a tensor axis;
 * every kernel wrapper hands the library the device of its tensors and the
   current stream there, and raises ValueError on tensors of two devices
   before anything launches (a stub library on the CPU).
@@ -170,8 +169,11 @@ def test_mesh_axes_rows_and_tensor_axis():
     assert mesh.rows(8) == (slice(6, 8), ("data", "fsdp"))
     assert mesh.rows(6) == (slice(3, 6), "data") and mesh.replicas("data") == 2
     assert mesh.rows(3) == (slice(0, 3), None) and mesh.replicas(None) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        make_mesh(MeshConfig(tensor=2), nodes=["a", "a"])
+    # the tensor axis: the rank grid without a process group (its groups over
+    # gloo ranks: tests/test_torch_tensor_parallel.py)
+    tmesh = make_mesh(MeshConfig(fsdp=2, tensor=2), nodes=["a"] * 4)
+    assert tmesh.ranks.tolist() == [[[0, 1], [2, 3]]] and tmesh.groups == {}
+    assert Mesh(MeshConfig(fsdp=2, tensor=2), tmesh.ranks, rank=3).coords == (0, 1, 1)
     with pytest.raises(ValueError, match="ranks"):
         make_mesh(MeshConfig(data=2))  # one process
 
@@ -204,7 +206,7 @@ def test_infer_param_sharding_matches_jax(models, fsdp):
     mask = jopt.trainable_mask({"params": params})["params"]
     model = UniGR(cfg, device="meta")
     mesh = Mesh(MeshConfig(data=8 // fsdp, fsdp=fsdp), np.arange(8).reshape(8 // fsdp, fsdp, 1))
-    got = infer_param_sharding(model, mesh)
+    got = {name: dims[1] for name, dims in infer_param_sharding(model, mesh).items()}
 
     def marker(spec, p):
         """An array of p's shape counting 1, 2, ... along JAX's fsdp dim (0

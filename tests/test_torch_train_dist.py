@@ -16,7 +16,11 @@ hash. One step an epoch, accum 1, val on one image each epoch:
 * the 2-rank checkpoint resumes at 1 rank and continues within the same
   tolerance of the 2-rank run that goes on; a resume at 2 ranks gives
   bit-equal losses and trainable state to the straight 2-rank run;
-* `--mesh_tensor 2` raises NotImplementedError.
+* `--mesh_tensor 2` over 2 processes (both take both rows; the LM
+  tensor-parallel, every rank running the val loop with the sharded model)
+  trains the same 2 steps as the one process: every rank's aux and
+  train state (gathered whole) the same, the losses within RTOL of the one process's
+  (1.4e-7 and 0 apart on the CPU), one checkpoint written, by rank 0.
 """
 import json
 import os
@@ -27,7 +31,6 @@ import sys
 import pytest
 
 from rga3_tpu_torch.tools.synth_trees import write_train_tree
-from rga3_tpu_torch.train import __main__ as cli
 
 import torch_dist_support as tds
 
@@ -91,6 +94,8 @@ def runs(tmp_path_factory):
         "one": (cli_args(tree, tmp / "one", "--epochs", "2", *one), 1),
         "two": (cli_args(tree, tmp / "two", "--epochs", "2", *two), 2),
         "two_e1": (cli_args(tree, tmp / "two_e1", "--epochs", "1", *two), 2),
+        "tensor2": (cli_args(tree, tmp / "tensor2", "--epochs", "2", "--mesh_tensor", "2",
+                             *one), 2),
     }
     started = {k: launch(tmp / k, argv, n) for k, (argv, n) in first.items()}
     out = {k: finish(procs, tmp / k) for k, procs in started.items()}
@@ -153,7 +158,14 @@ def test_resume_across_world_sizes(runs):
     assert abs(losses(one)[0] - want) <= RTOL * abs(want)
 
 
-def test_tensor_axis_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        cli.main(cli_args(str(tmp_path), tmp_path / "ck", "--mesh_tensor", "2"))
-    assert not (tmp_path / "ck").exists()
+def test_tensor_axis_trains_through_the_cli(runs):
+    one, tensor = runs["one"][0], runs["tensor2"]
+    assert [r["mesh"] for r in tensor] == [{"data": 1, "fsdp": 1, "tensor": 2}] * 2
+    assert [r["rows"] for r in tensor] == [[0, 1], [0, 1]]
+    assert losses(tensor[0]) == losses(tensor[1]) and len(losses(tensor[0])) == 2
+    for a, b in zip(losses(tensor[0]), losses(one)):
+        assert abs(a - b) <= RTOL * abs(b), (losses(tensor[0]), losses(one))
+    assert [r["writes"] for r in tensor] == [2, 0]
+    assert tensor[0]["digest"] == tensor[1]["digest"]
+    for r in tensor:
+        assert [m for _, m in r["val_metric"]] == [v["gIoU"] for v in tensor[0]["val"]]

@@ -107,8 +107,9 @@ def train_run(cfg, sd, train_kw, mesh_cfg, micro_batches, global_rows, steps=3,
     """`steps` train steps of the port's UniGR (`cfg`, f32, state dict `sd`)
     on `micro_batches` (this rank's rows of each global micro-batch of
     `global_rows` rows) over the mesh of `mesh_cfg` (None: no mesh). Returns
-    the per-step aux, the final trainable tensors, whether every frozen
-    tensor kept its bits, and the train state."""
+    the per-step aux, the final trainable tensors (whole), whether every
+    frozen tensor kept its bits (gathered whole where the mesh shards it),
+    and the train state."""
     import torch
 
     from rga3_tpu_torch.config import TrainConfig
@@ -146,9 +147,14 @@ def train_run(cfg, sd, train_kw, mesh_cfg, micro_batches, global_rows, steps=3,
     for _ in range(steps):
         state, aux = step(state, micro_batches)
         trace.append({k: float(v) for k, v in aux.items()})
-    trainable = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
-    frozen_kept = all(torch.equal(p.detach(), sd[n]) for n, p in model.named_parameters()
-                      if not p.requires_grad)
+    plan = getattr(model, "shard_plan", None)
+
+    def whole(n, p):
+        return p.detach().clone() if plan is None else plan.whole(n, p.detach())
+
+    trainable = {n: whole(n, p) for n, p in model.named_parameters() if p.requires_grad}
+    frozen_kept = all([torch.equal(whole(n, p), sd[n]) for n, p in model.named_parameters()
+                       if not p.requires_grad])
     return trace, trainable, frozen_kept, state
 
 
@@ -223,7 +229,8 @@ def train_ranks(rank: int, path: str, out_dir: str) -> Dict[str, Any]:
                                      opt.mesh.group("fsdp"))
         out[run["name"]] = {"trace": trace, "frozen_kept": frozen_kept,
                             "digest": digest(trainable),
-                            "gathered": all(torch.equal(gathered[n], trainable[n])
+                            "gathered": all(torch.equal(gathered[n],
+                                                        opt.tensor_block(n, trainable[n]))
                                             for n in trainable),
                             "sharded": sorted(n for n, d in opt.dims.items() if d is not None)}
         if rank == 0:
@@ -242,6 +249,170 @@ def train_ranks(rank: int, path: str, out_dir: str) -> Dict[str, Any]:
     out["broadcast"] = (broadcast_scalar(3.5 + rank), broadcast_scalar(None if rank == 0 else 1.0))
     out["rows"] = (put_global(mesh, np.arange(6)).tolist(), host_local_slice(mesh, 6),
                    mesh.rows(3))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded greedy generation (tests/test_torch_sharded_generate.py)
+# ---------------------------------------------------------------------------
+
+def sharded_qwen(cfg, sd, mesh, tree=None):
+    """The port's Qwen2.5-VL of `cfg` (f32) cut to this rank's blocks over
+    `mesh` on the meta device, each block then loaded from the whole
+    state dict `sd` one leaf at a time (or from the flax tree `tree`,
+    through `convert.load_flax_tree`)."""
+    from rga3_tpu_torch.convert import load_flax_tree
+    from rga3_tpu_torch.models.qwen25vl.model import Qwen25VL
+    from rga3_tpu_torch.parallel import shard_model
+
+    model = Qwen25VL(cfg, device="meta")
+    plan = shard_model(model, mesh, device="cpu")
+    if tree is not None:
+        load_flax_tree(model, tree)
+        return model.eval()
+    for name in plan.blocks:
+        plan.load_(model, name, sd[name])
+    return model.eval()
+
+
+def generate_ranks(rank: int, path: str) -> Dict[str, Any]:
+    """Each job of the pickled list at `path` ({name, mesh, cfg, sd (a
+    path), kw, spec}) on this rank: greedy tokens and per-step logits (the
+    whole vocabulary) of the sharded model, and with `spec` the speculative
+    greedy tokens with the model as its own draft; a job whose mesh the port
+    cannot compute gives its ValueError's text."""
+    import torch
+
+    from rga3_tpu_torch.config import MeshConfig
+    from rga3_tpu_torch.models.qwen25vl.generate import (
+        greedy_generate, speculative_greedy_generate,
+    )
+    from rga3_tpu_torch.parallel import make_mesh
+
+    with open(path, "rb") as f:
+        jobs = pickle.load(f)
+    out: Dict[str, Any] = {}
+    for job in jobs:
+        cfg = MeshConfig(**job["mesh"])
+        if cfg.data * cfg.fsdp * cfg.tensor != torch.distributed.get_world_size():
+            continue
+        mesh = make_mesh(cfg)
+        tree = None
+        if "tree" in job:
+            with open(job["tree"], "rb") as f:
+                tree = pickle.load(f)
+        try:
+            model = sharded_qwen(job["cfg"], torch.load(job["sd"]), mesh, tree)
+        except ValueError as e:
+            out[job["name"]] = {"error": str(e)}
+            continue
+        kw = {k: torch.as_tensor(v) for k, v in job["kw"].items() if k != "gen"}
+        kw.update(job["kw"]["gen"])
+        tokens, logits = greedy_generate(model, **kw, return_logits=True,
+                                         suppress_ids=job.get("suppress", ()))
+        rec = {"tokens": tokens.numpy(), "logits": logits.numpy(), "mesh": mesh.shape,
+               "kv_heads": model.lm.kv_heads,
+               "held": sum(t.numel() for t in model.state_dict().values())}
+        if tree is not None:  # the reverse gathers the whole tree
+            from rga3_tpu_torch.convert import _flatten, flax_tree_from_torch
+
+            back, want = _flatten(flax_tree_from_torch(model)), _flatten(tree)
+            rec["tree_back"] = set(back) == set(want) and all(
+                np.array_equal(back[k], want[k]) for k in want)
+        if "rows" in job:  # the first down_proj on this rank's block of the input
+            from rga3_tpu_torch.models.qwen25vl.language import row_linear
+            from rga3_tpu_torch.parallel.fsdp import gathered
+
+            layer = model.lm.model.layers_0
+            lin = layer.mlp.down_proj
+            x = torch.from_numpy(job["rows"])
+            cols = slice(lin.tp.index * x.shape[-1] // lin.tp.size,
+                         (lin.tp.index + 1) * x.shape[-1] // lin.tp.size)
+            with torch.no_grad(), gathered(layer):
+                rec["rows"] = row_linear(lin, x[..., cols].contiguous()).numpy()
+        if job.get("spec"):
+            one = {k: (v[:1] if k not in ("position_ids",) else v[:, :1])
+                   for k, v in kw.items() if isinstance(v, torch.Tensor)}
+            rest = {k: v for k, v in kw.items() if not isinstance(v, torch.Tensor)}
+            rec["spec"] = speculative_greedy_generate(model, model, **one, **rest,
+                                                      k=3)[0].numpy()
+            rec["greedy_row0"] = greedy_generate(model, **one, **rest).numpy()
+        out[job["name"]] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the train step over the tensor axis (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+def tensor_train_ranks(rank: int, path: str, out_dir: str) -> Dict[str, Any]:
+    """The pickled job's runs at this world size ({name, mesh, batches (a
+    list a rank), rows}): each run's aux trace, frozen check, trainable
+    tensors' checksum and what it shards (rank 0 saves the trainable tensors
+    under `out_dir`), and what `sync_grads` makes of gradients that differ
+    on every rank; the run named `job["checkpoint"]` saved by rank 0
+    under `out_dir/ckpt` with the checksum of its whole state. With
+    `job["restore"]` (a checkpoint directory), the state restored over this
+    world's mesh instead, and its checksums. Then the mesh's groups."""
+    import torch
+    import torch.distributed as dist
+
+    from rga3_tpu_torch.config import MeshConfig, TrainConfig
+    from rga3_tpu_torch.models.unigr import UniGR
+    from rga3_tpu_torch.parallel import make_mesh
+    from rga3_tpu_torch.train import checkpoints
+    from rga3_tpu_torch.train.step import make_train_state
+
+    with open(path, "rb") as f:
+        job = pickle.load(f)
+    sd = torch.load(job["sd"])
+    world = dist.get_world_size()
+    out: Dict[str, Any] = {}
+    for run in job["runs"]:
+        cfg = MeshConfig(**run["mesh"])
+        if cfg.data * cfg.fsdp * cfg.tensor != world:
+            continue
+        if "restore" in run:
+            model = UniGR(job["cfg"], device="cpu")
+            model.load_state_dict(sd, strict=True)
+            state, _ = make_train_state(TrainConfig(**job["train"]), model,
+                                        mesh=make_mesh(cfg))
+            checkpoints.CheckpointManager(run["restore"]).restore("latest", state)
+            plan = model.shard_plan
+            out[run["name"]] = {
+                "restored": digest(checkpoints.state_tensors(state)),
+                "params": digest({n: plan.whole(n, p) for n, p in model.named_parameters()
+                                  if p.requires_grad}),
+                "count": state.opt.count, "step": state.step}
+            continue
+        trace, trainable, frozen_kept, state = train_run(
+            job["cfg"], sd, job["train"], cfg, run["batches"][rank], run["rows"])
+        opt = state.opt
+        out[run["name"]] = {
+            "trace": trace, "frozen_kept": frozen_kept, "digest": digest(trainable),
+            "tensor_sharded": sorted(opt.tensor_sharded), "partial": sorted(opt.partial),
+            "fsdp_sharded": sorted(n for n, d in opt.dims.items() if d is not None),
+            "frozen_fsdp": sum(b.fsdp_stored for b in state.model.shard_plan.blocks.values())}
+        if rank == 0:
+            torch.save(trainable, os.path.join(out_dir, f"{run['name']}.pt"))
+        if run["name"] == job.get("checkpoint"):
+            checkpoints.CheckpointManager(os.path.join(out_dir, "ckpt")).save_epoch(state, 0)
+            out["saved"] = digest(checkpoints.state_tensors(state))
+        # gradients that differ on every rank (rank + 1 everywhere) through
+        # sync_grads: the values each tensor then holds
+        opt.zero_grad()
+        for p in opt.params.values():
+            p.grad = torch.full_like(p, rank + 1.0)
+        opt.sync_grads(cfg.tensor)
+        out[run["name"]]["synced"] = {n: sorted(set(g.flatten().tolist()))
+                                      for n, g in opt.synced.items()}
+        opt.zero_grad()
+    mesh = make_mesh(MeshConfig(tensor=world))
+    groups = {}
+    for axis in ("data", "fsdp", "tensor", "replica"):
+        g = mesh.groups.get(axis)
+        groups[axis] = None if g is None else dist.get_process_group_ranks(g)
+    out["groups"] = {"coords": mesh.coords, **groups}
     return out
 
 
