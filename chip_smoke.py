@@ -30,7 +30,8 @@ Phases, each timed on its own line:
      (EVAL_FRAMES frames at 720x1280, EVAL_EXPRESSIONS expressions, moving
      ellipses over noise as the ground truth) under build/eval_phase/,
      infer cold (its launches counted), warm into a fresh tree (the same
-     bytes) and traced (the busy share); the PNGs equal to a direct
+     bytes) and traced (the busy share, from a device-only trace; the PNGs
+     are encoded on the driver's threads); the PNGs equal to a direct
      `segment_video_multi` of the frames read back, bit for bit; a resume
      that writes nothing; the eval stage (EVAL_WORKERS spawned workers)
      against the J&F of the direct masks; then `eval_img` on EVAL_IMAGES
@@ -137,6 +138,27 @@ Phases, each timed on its own line:
      seconds per track, frames/s, peak memory, the device's busy share; the
      kernel route against the plain route on frame 1, the first frame that
      reads memory (frames 2-7 logged);
+  5c. legacy: `UniGRLegacy` (SAM-v1 ViT-H at 1024^2, random from the seed)
+     sharing phase 3's Qwen2.5-VL-7B: `segment_video_multi` on the same
+     video and expressions cold (its launches: the flash forward, no Hiera
+     wrapper) and warm, masks of the video's size, finite low-resolution
+     logits; one `train_forward` + backward on phase 6's batch (a finite
+     loss, the flash backward once per LM layer and decoder image->token
+     attention); seconds and peak memory;
+  5d. switches, on phase 3's weights, each against its default route: the
+     vision tower with `window_resident` (each block on the resident
+     route's own input, pad slots and all, per row within ROW_TOL; the
+     tower end to end in f32 with plain attention within RESIDENT_F32_TOL,
+     and in bf16 within RESIDENT_SPREADS times the default route's own
+     bf16-vs-f32 error; the flash forward over the padded window stream),
+     the single-mask decode
+     by stability (each frame's mask the stable first one or the default
+     route's best, bit for bit) and a mask-prompted `forward_sam_heads`,
+     one SAM chunk under `RGA3_GELU_EXACT=1` (every fused block's call the
+     erf GELU, the masks agreeing), and `segment_video_multi` with
+     `device_preprocess=True` (features and masks against the host route);
+     the resident, erf and device-preprocessing calls are paths of their
+     own;
   6. train: `build_train_step` on the same UniGR (the release LoRA, r=128,
      alpha=256, whose zero B left the earlier phases' outputs unchanged;
      trainable LoRA, lm_head, embed_tokens, the SAM2 mask decoder and
@@ -146,8 +168,17 @@ Phases, each timed on its own line:
      the first cold with its launches counted (flash_attention_bwd once per
      LM layer and per decoder image->token attention), then one traced;
      the losses finite and falling, frozen weights bit-identical, trainable
-     ones moved, peak memory, and the kernel route's gradients against the
-     plain route's on the same weights and batch;
+     ones moved (by checksums), peak memory, the kernel route's gradients
+     against themselves (a second backward: its loss bit-equal, the
+     gradients' run-to-run spread) and against the plain route's on the
+     same weights and batch; then the backbone unfrozen
+     (`freeze_sam_backbone=False`) on the same weights and batch: the loss
+     bit-equal to the frozen one, the image encoder's gradients non-zero in
+     every Hiera stage and the neck, the trainable gradients within
+     UNFROZEN_SPREADS times that spread of the frozen step's, one
+     step (lr fixed) leaving the encoder bit-identical, its seconds
+     (forward / backward / optimizer) and peak memory beside the frozen
+     step's;
   6b. train CLI: `python -m rga3_tpu_torch.train`'s `main`, under a
      process group of one rank (NCCL, world size 1, `--mesh_data 1`: the
      sharded optimizer's collectives, the all-reduced loss normalisers, the
@@ -159,7 +190,8 @@ Phases, each timed on its own line:
      accum 8, the ten-dataset mixture at its rates, remat "dots", f32
      masters, the SAM2 mask decoder and text_hidden_fcs held and computed
      in f32 as JAX's f32 parameters make them) on a model it builds itself (`--model_dir dummy`: the JAX
-     script's crc32-seeded draws), over a synthetic tree in every published
+     script's crc32-seeded draws, the LM's layers from its scanned paths;
+     run 2 copies run 1's draws, the same values), over a synthetic tree in every published
      layout under build/train_cli/ (`write_train_tree` at TRAIN_CLI_SIZES:
      COCO-size stills, 720p frame folders, an 8-second 480x854 mp4 written
      and decoded with OpenCV, a ReasonSeg val split of `val_images` images
@@ -190,7 +222,8 @@ Phases, each timed on its own line:
      card into build/export_q4/ (seconds, GB); the server's service built
      by `build_service --model_dir build/export_q4` (the run's dummy word
      tokenizer: the card has no transformers), every tensor bit-equal to an
-     in-process `quantize_for_serving(..., "int4")` of the export reloaded;
+     in-process `quantize_for_serving(..., "int4")` of the export as 6b read
+     it back;
      one /api/qa and one /api/segment over localhost, each a path counted
      from its cold call (int4_matmul 197 launches a forward, the Hiera
      wrappers as Hiera-L's blocks say), the answer equal to `UniGRChat.answer`
@@ -235,8 +268,9 @@ Phases, each timed on its own line:
   8. reference: a small model with the fused Hiera routes (and the split
      window block) on the card against the same model in f32 on the CPU,
      its 2-frame track (the memory encoder and the bank; the dense memory
-     attention), and a small int4 chat on the card against the same quantized model on
-     the CPU (prefill and teacher-forced decode logits).
+     attention), a tiny `UniGRLegacy` (SAM-v1) likewise, and a small int4
+     chat on the card against the same quantized model on the CPU (prefill
+     and teacher-forced decode logits).
 
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before it. Without
@@ -365,6 +399,18 @@ TRAIN_VIDEO_TOKENS = 320  # merged video tokens a sample (4 temporal groups of <
 # with the decoder's code the same on both sides); with only the backward
 # plain, a tensor differs by the backward's own rounding (~1e-2)
 GRAD_TOL = 0.1
+# the unfrozen step's trainable gradients against the frozen step's: at
+# most this many times the frozen route's own run-to-run spread (JAX and
+# the CPU hold them bit-identical; on the card the masks' bilinear resizes
+# add with atomics in their backward, and the unfrozen graph sums some
+# gradients in another order: 1.87x the spread on an H100)
+UNFROZEN_SPREADS = 3
+# the vision tower's window-resident route against its default route, end
+# to end: in f32 with every attention plain (one function, rounded in
+# different orders), per row max err / max|row|; in bf16, at most this many
+# times the default route's own per-row error against its f32 plain self
+RESIDENT_F32_TOL = 1e-4
+RESIDENT_SPREADS = 2
 LOSS_TOL = 1e-2
 # phase 6b: the training tree's sizes (published widths; a few items a
 # dataset, 12 frames a video folder) and its ReasonSeg val images
@@ -1409,6 +1455,264 @@ def tracker_phase(model, proc, frames, expressions, read_path) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the legacy UniGR (SAM-v1 ViT-H) and the main path's switches
+# --------------------------------------------------------------------------
+
+def legacy_phase(model, proc, frames, expressions, seed, card_line, read_path) -> dict:
+    """Phase 5c: `UniGRLegacy` (SAM-v1 ViT-H at 1024^2, random from the seed)
+    sharing phase 3's Qwen2.5-VL-7B and its weights: `segment_video_multi`
+    on the video's 2 expressions cold (its launches counted: the flash
+    forward, no Hiera wrapper) and warm, masks of the video's size and
+    finite mask logits; then one `train_forward` + backward on phase 6's
+    batch (the release trainable set): a finite loss and the flash backward
+    once per LM layer and decoder image->token attention. Seconds and peak
+    memory. Returns the two paths."""
+    import torch
+    from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor
+    from rga3_tpu_torch.models.sam1 import SAM1_VIT_H
+    from rga3_tpu_torch.models.unigr.legacy import UniGRLegacy, UniGRLegacyConfig
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.train.optimizer import trainable_mask
+
+    cfg = UniGRLegacyConfig(qwen=model.cfg.qwen, sam1=SAM1_VIT_H, seg=model.cfg.seg)
+    t0 = time.perf_counter()
+    legacy = UniGRLegacy(cfg, device=model.device, dtype=model.dtype, qwen=model.qwen)
+    legacy.init_weights(torch.Generator(model.device.type).manual_seed(seed), qwen=False)
+    legacy.eval()
+    torch.cuda.synchronize()
+    n_sam = sum(p.numel() for p in legacy.sam_model.parameters())
+    log(f"legacy: UniGRLegacy (Qwen2.5-VL-7B shared with phase 3 + SAM-v1 ViT-H, "
+        f"{n_sam / 1e6:.1f} M params, random from the seed) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    seg = UniGRSegmentor(legacy, proc, num_frames_mllm=8, sam_chunk=8)
+    paths = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    masks = seg.segment_video_multi(frames, expressions)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    paths["legacy_segment"] = read_path()
+    launches = paths["legacy_segment"][0]
+    peak = torch.cuda.max_memory_allocated()
+    for k in seg.phase_seconds:
+        seg.phase_seconds[k] = 0.0
+    t0 = time.perf_counter()
+    seg.segment_video_multi(frames, expressions)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    phases = dict(seg.phase_seconds)
+    emb, has = seg._seg_embedding(frames, expressions[0])
+    logits = seg.decode_logits(seg.encode_frames(frames), emb)
+    log(f"legacy segment_video_multi: cold {cold:.3f} s, warm {warm:.3f} s (its phases (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+        + f"); masks {masks.shape}, foreground {masks.mean():.4f}; low-res logits "
+        f"{tuple(logits.shape)}; launches { {k: n for k, n in launches.items() if n} }; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; {card_line}")
+    h, w = frames[0].shape[:2]
+    if masks.shape != (len(expressions), len(frames), h, w) or not has:
+        raise AssertionError(f"legacy: masks {masks.shape}, has_seg {has}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("legacy: non-finite mask logits")
+    # the Hiera wrappers: every kernel of segmentation but the flash forward
+    if launches["flash_attention"] <= 0 or any(
+            launches[k] for k in SEGMENT_KERNELS if k != "flash_attention"):
+        raise AssertionError(f"legacy: launches {launches}: the flash forward and no Hiera "
+                             "wrapper expected")
+
+    batch = train_batch(frames, model.cfg, seed, legacy.device)
+    trainable_mask(legacy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = legacy.train_forward(**batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out["loss"].backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    paths["legacy_train"] = read_path()
+    launches = paths["legacy_train"][0]
+    per_step = cfg.qwen.text.num_hidden_layers + cfg.sam1.twoway_depth
+    grads = [p.grad for p in legacy.parameters() if p.requires_grad]
+    log(f"legacy train_forward + backward (B=2, T={TRAIN_SAM_FRAMES} SAM-v1 frames): forward "
+        f"{t1 - t0:.3f} s, backward {t2 - t1:.3f} s; "
+        + ", ".join(f"{k} {v.item():.5f}" for k, v in out.items())
+        + f"; flash_attention_bwd {launches['flash_attention_bwd']} (the LM's "
+        f"{cfg.qwen.text.num_hidden_layers} layers + the decoder's {cfg.sam1.twoway_depth} "
+        f"image->token attentions = {per_step}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card_line}")
+    if not all(math.isfinite(v.item()) for v in out.values()):
+        raise AssertionError(f"legacy train: non-finite losses {out}")
+    if launches["flash_attention_bwd"] != per_step:
+        raise AssertionError(f"legacy train: {launches['flash_attention_bwd']} flash backward "
+                             f"launches, expected {per_step}")
+    if not grads or any(g is None or not torch.isfinite(g).all() for g in grads):
+        raise AssertionError("legacy train: a trainable tensor lacks a finite gradient")
+    for p in legacy.parameters():
+        p.grad = None
+    del seg, legacy, batch, out, grads, logits
+    torch.cuda.empty_cache()
+    return paths
+
+
+def switches_phase(model, proc, frames, expressions, masks, card_line, read_path) -> dict:
+    """Phase 5d: the main path's switches on phase 3's weights, each against
+    its default route (see the module docstring). `masks` are phase 3's.
+    Returns the paths of the resident tower, the exact GELU and the device
+    preprocessing."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor, build_seg_messages
+    from rga3_tpu_torch.data.templates import get_sparse_indices
+    from rga3_tpu_torch.models.qwen25vl.vision import (
+        _take_fill, compute_vision_layout, layout_device_args,
+    )
+    from rga3_tpu_torch.ops.attention import reset_launches, set_plain_attention
+
+    paths = {}
+    seg = UniGRSegmentor(model, proc, num_frames_mllm=8, sam_chunk=8)
+    sam = model.grounding_encoder
+
+    # the vision tower with its tokens window-resident against the default
+    # route: each block on the resident route's own input (whose pad slots
+    # carry what the earlier blocks wrote there) against the default block
+    # on that input unpadded, per row; the tower end to end in f32 with
+    # every attention plain (the two routes compute one function), and in
+    # bf16 within RESIDENT_SPREADS times the default route's own bf16-vs-f32
+    # spread
+    visual = model.qwen.visual
+    idx = get_sparse_indices(len(frames), 8)
+    enc = proc(build_seg_messages(expressions[0]), videos=[[frames[i] for i in idx]],
+               add_generation_prompt=False)
+    vcfg = visual.cfg
+    layout = layout_device_args(compute_vision_layout(enc["video_grid_thw"], vcfg), vcfg)
+    pixels = torch.as_tensor(enc["pixel_values_videos"], device=model.device)
+    blocks = [getattr(visual, f"blocks_{i}") for i in range(vcfg.depth)]
+    seen = {"default": [], "resident": []}
+    mode = ["default"]
+    hooks = [b.register_forward_hook(lambda m, a, kw, out: seen[mode[0]].append((a, kw, out)),
+                                     with_kwargs=True) for b in blocks]
+    try:
+        with torch.no_grad():
+            default = visual(pixels, layout)
+            mode[0] = "resident"
+            visual.cfg = vcfg.replace(window_resident=True)
+            reset_launches()
+            resident = visual(pixels, layout)
+            torch.cuda.synchronize()
+            paths["switch_window_resident"] = read_path()
+    finally:
+        visual.cfg = vcfg
+        for h in hooks:
+            h.remove()
+    win_pad, win_unpad = seen["resident"][0][0][4:6]
+    block_rel = []
+    with torch.no_grad():
+        for block, (dargs, dkw, _), (rargs, _, rout) in zip(blocks, seen["default"],
+                                                            seen["resident"]):
+            y = block(_take_fill(rargs[0], win_unpad), *dargs[1:], use_full=dkw["use_full"])
+            every = torch.ones(1, y.shape[0], dtype=torch.bool, device=y.device)
+            block_rel.append(row_rel_err(_take_fill(rout, win_unpad)[None], y[None], every)[0])
+        pads = seen["resident"][-1][0][0][win_pad < 0].float().abs().sum().item()
+        f32 = copy.deepcopy(visual).float()
+        set_plain_attention(f32, True)
+        ref32 = f32(pixels, layout)
+        f32.cfg = vcfg.replace(window_resident=True)
+        res32 = f32(pixels, layout)
+    del f32, seen
+    rows = torch.ones(1, default.shape[0], dtype=torch.bool, device=default.device)
+    rel, err = row_rel_err(resident[None], default[None], rows)
+    rel32 = row_rel_err(res32[None], ref32[None], rows)[0]
+    spread = row_rel_err(default[None], ref32[None], rows)[0]
+    rel_res = row_rel_err(resident[None], ref32[None], rows)[0]
+    n_flash = paths["switch_window_resident"][0]["flash_attention"]
+    worst = max(range(len(block_rel)), key=block_rel.__getitem__)
+    log(f"switch window_resident: each block on the resident route's input (its {int((win_pad < 0).sum())} "
+        f"pad slots' L1 norm {pads:.3e} at the last block) against the default route's block, per row max err / "
+        f"max|row|: worst {block_rel[worst]:.3e} (block {worst}; tol {ROW_TOL}), median "
+        f"{statistics.median(block_rel):.3e}; the tower end to end over {vcfg.depth} blocks: "
+        f"f32 with plain attention, resident vs default per row {rel32:.3e} (tol "
+        f"{RESIDENT_F32_TOL}); bf16, against the default route in f32: the default route "
+        f"{spread:.3e}, the resident route {rel_res:.3e}; bf16 resident vs default per row "
+        f"{rel:.3e} (tol {RESIDENT_SPREADS} x {spread:.3e}), max abs {err:.3e}; flash launches "
+        f"{n_flash} (the full-attention blocks over the padded window stream)")
+    if (block_rel[worst] > ROW_TOL or rel32 > RESIDENT_F32_TOL
+            or rel > RESIDENT_SPREADS * spread or n_flash != len(vcfg.fullatt_block_indexes)):
+        raise AssertionError("switch window_resident: disagrees with the default route")
+    del ref32, res32
+
+    # single-mask decoding by stability, and a mask-prompted decode
+    emb, _ = seg._seg_embedding(frames, expressions[0])
+    feats = seg.encode_frames(frames)
+    lang = emb[None, None, :].expand(len(frames), 1, emb.shape[-1])
+    with torch.no_grad():
+        multi = sam.decode_features_with_language(*feats, lang)
+        single = sam.decode_features_with_language(*feats, lang, multimask_output=False)
+        stable = (sam.sam_mask_decoder._stability_scores(single["low_res_masks"][:, 0])
+                  >= sam.cfg.dynamic_multimask_stability_thresh)
+        best = (single["low_res_masks"] == multi["low_res_masks"]).flatten(1).all(1)
+        pix = feats[2] + sam.no_mem_embed.reshape(1, 1, 1, -1).to(feats[2].dtype)
+        prompt = multi["low_res_masks"].permute(0, 2, 3, 1)
+        prompted = sam.forward_sam_heads(pix, feats[:2], language_embd=lang, mask_inputs=prompt)
+    agree = ((prompted["high_res_masks"] > 0) == (multi["high_res_masks"] > 0)).float().mean()
+    log(f"switch single-mask decode: {int(stable.sum())} of {len(frames)} frames stable (the "
+        f"first mask), {int((best & ~stable).sum())} the default route's best-IoU mask "
+        f"(bit-equal); mask-prompted forward_sam_heads (the default route's low-res masks as "
+        f"the dense prompt): masks {tuple(prompted['high_res_masks'].shape)}, agreement with "
+        f"the default route {agree.item():.5f}")
+    if not bool((stable | best).all()) or not torch.isfinite(single["high_res_masks"]).all():
+        raise AssertionError("switch single-mask: a frame's mask is neither the stable first "
+                             "mask nor the default route's")
+    if not (torch.isfinite(prompted["high_res_masks"]).all()
+            and prompted["high_res_masks"].shape == multi["high_res_masks"].shape
+            and not torch.equal(prompted["high_res_masks"], multi["high_res_masks"])):
+        raise AssertionError("switch mask prompt: no effect, or non-finite masks")
+
+    # RGA3_GELU_EXACT=1: the erf GELU in every Hiera block
+    logits = seg.decode_logits(feats, emb)
+    os.environ["RGA3_GELU_EXACT"] = "1"
+    try:
+        reset_launches()
+        logits_e = seg.decode_logits(seg.encode_frames(frames), emb)
+        paths["switch_gelu_exact"] = read_path()
+    finally:
+        del os.environ["RGA3_GELU_EXACT"]
+    calls = paths["switch_gelu_exact"][1]
+    fused = [k for name in ("fused_window_block", "fused_global_block",
+                            "fused_window_block_split", "fused_transition_block")
+             for k in calls[name]]
+    erf = all(k[-1] is False for k in fused) and any(k[3] == "gelu_erf" for k in calls["gemm"])
+    agree = ((logits_e > 0) == (logits > 0)).float().mean().item()
+    rel = ((logits_e - logits).abs().max() / logits.abs().max()).item()
+    log(f"switch RGA3_GELU_EXACT=1: {len(fused)} fused block calls, all erf: {erf}; mask "
+        f"logits against the tanh route max err / max|logit| {rel:.3e}, agreement {agree:.5f}")
+    if not erf or agree <= 0.95:
+        raise AssertionError("switch RGA3_GELU_EXACT: not the erf route, or disagrees")
+
+    # the device preprocessing (a float cubic resize from the native frames)
+    dseg = UniGRSegmentor(model, proc, num_frames_mllm=8, sam_chunk=8, device_preprocess=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    dmasks = dseg.segment_video_multi(frames, expressions)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["switch_device_preprocess"] = read_path()
+    dfeat = dseg.encode_frames(frames)[2].float()
+    feat_rel = ((dfeat - feats[2].float()).norm() / feats[2].float().norm()).item()
+    agree = float((dmasks == masks).mean())
+    log(f"switch device_preprocess: segment_video_multi {wall:.3f} s (cold); stride-16 "
+        f"features rel err against the host route {feat_rel:.3e}, mask agreement {agree:.5f} "
+        f"(foreground {dmasks.mean():.4f} vs {masks.mean():.4f}); {card_line}")
+    if dmasks.shape != masks.shape or agree <= 0.95:
+        raise AssertionError("switch device_preprocess: disagrees with the host route")
+    del seg, dseg, feats, multi, single, prompted
+    torch.cuda.empty_cache()
+    return paths
+
+
+# --------------------------------------------------------------------------
 # STOM region QA (BASELINE config 5) on the int4 serving chat
 # --------------------------------------------------------------------------
 
@@ -2137,8 +2441,7 @@ def stom_train_phase(frames, card_line, read_path, device="cuda") -> None:
     if file_cfg != run1["cfg"] or not same:
         raise AssertionError("stom_train: the weight file does not hold the trained model")
     # the device alone: aggregating a step's ~15k host launches takes ~20 s
-    busy = device_breakdown(lambda: run1["step"](*tc.to_device(device, *run1["batch"])),
-                            host=False)
+    busy = device_breakdown(lambda: run1["step"](*tc.to_device(device, *run1["batch"])))
     warm = statistics.median(run1["step_s"][1:])
     log(f"profile (a warm layered step, batch 8): device busy in the traced step / the untraced "
         f"warm median step: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}; "
@@ -2685,6 +2988,53 @@ def small_reference(seed: int) -> None:
             raise AssertionError("small reference tracker: the card disagrees with the CPU")
 
 
+def small_legacy_reference(seed: int) -> None:
+    """A tiny `UniGRLegacy` (SAM-v1 at 128^2: an 8 x 8 grid in windows of
+    3, one global block) in bf16 on the card against the same model in f32
+    on the CPU: the [SEG] embedding and the low-resolution mask logits of
+    two frames, within the small reference's gates."""
+    import numpy as np
+    import torch
+    from rga3_tpu_torch.config import SegHeadConfig
+    from rga3_tpu_torch.data.processor import QwenVLProcessor
+    from rga3_tpu_torch.evaluation.segmentor import UniGRSegmentor
+    from rga3_tpu_torch.models.qwen25vl import tiny_config
+    from rga3_tpu_torch.models.sam1 import tiny_sam1_config
+    from rga3_tpu_torch.models.unigr.legacy import UniGRLegacy, UniGRLegacyConfig
+    from rga3_tpu_torch.ops.attention import flash_attention
+
+    proc = QwenVLProcessor.from_pretrained(
+        "dummy", min_pixels=4 * 28 * 28, max_pixels=64 * 28 * 28,
+        video_max_pixels=64 * 28 * 28)
+    sam = tiny_sam1_config(128)
+    cfg = UniGRLegacyConfig(qwen=tiny_config(152_000), sam1=sam,
+                            seg=SegHeadConfig(out_dim=sam.d_model, seg_token_id=proc.seg_token_id))
+    cpu = UniGRLegacy(cfg, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(seed), std=0.1)
+    gpu = UniGRLegacy(cfg, device="cuda", dtype=torch.bfloat16)
+    gpu.load_state_dict(cpu.state_dict())
+    frames = [f for f in np.random.default_rng(seed).integers(0, 256, (2, 112, 168, 3),
+                                                              dtype=np.uint8)]
+    res = {}
+    for name, model in (("cpu_f32", cpu), ("gpu_bf16", gpu)):
+        seg = UniGRSegmentor(model, proc, num_frames_mllm=2, sam_chunk=2)
+        before = flash_attention.launches
+        emb, has = seg._seg_embedding(frames, "the thing")
+        logits = seg.decode_logits(seg.encode_frames(frames), emb)
+        res[name] = (emb.float().cpu(), logits.float().cpu(), has,
+                     flash_attention.launches - before)
+    (ec, lc, hc, _), (eg, lg, hg, launched) = res["cpu_f32"], res["gpu_bf16"]
+    emb_rel = ((eg - ec).norm() / ec.norm()).item()
+    logit_rel = ((lg - lc).abs().max() / lc.abs().max()).item()
+    agree = ((lg > 0) == (lc > 0)).float().mean().item()
+    log(f"small legacy reference (tiny UniGRLegacy, bf16 on the card vs f32 plain on the "
+        f"CPU): [SEG] rel err {emb_rel:.3e}, low-res mask logit max err / max|logit| "
+        f"{logit_rel:.3e}, mask agreement {agree:.5f}; flash launches on the card {launched}")
+    if not (hc and hg and launched > 0 and emb_rel < 5e-2 and logit_rel < 5e-2
+            and agree > 0.97):
+        raise AssertionError("small legacy reference: the card disagrees with the CPU")
+
+
 def teacher_forced_logits(model, inputs, tokens):
     """(B, steps, V) f32 logits of `model` on the prompt `inputs` (as
     `UniGRChat.prepare` gives them) followed by `tokens`, through a fresh
@@ -3031,16 +3381,17 @@ def train_phase(model, frames, seed, read_path) -> dict:
     state, opt = make_train_state(tcfg, model)
     n_train = sum(p.numel() for p in opt.params.values())
     t0 = time.perf_counter()
-    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    before = {n: bits_digest(p) for n, p in model.named_parameters()}
     log(f"train: {n_train / 1e9:.4f} B trainable parameters in {len(opt.params)} tensors "
         f"(LoRA r={cfg.qwen.text.lora_rank} alpha={cfg.qwen.text.lora_alpha}, lm_head, "
         f"embed_tokens, sam_mask_decoder, text_hidden_fcs); Adam mu {tcfg.adam_mu_dtype}, "
-        f"nu in the parameters' dtype; weights copied to the host in "
+        f"nu in the parameters' dtype; checksums of {len(before)} weights in "
         f"{time.perf_counter() - t0:.2f} s")
     step = build_train_step(lambda m, mb: m.train_forward(**mb), opt, timed=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     losses, walls, path = [], [], None
     for i in range(TRAIN_STEPS):
         if i == 0:
@@ -3065,7 +3416,7 @@ def train_phase(model, frames, seed, read_path) -> dict:
         f"flash_attention_bwd {launches['flash_attention_bwd']} (the LM's "
         f"{cfg.qwen.text.num_hidden_layers} layers + the decoder's {cfg.sam2.twoway_depth} "
         f"image->token attentions = {per_step}); max_memory_allocated {peak / 2**30:.2f} GiB "
-        "(the bf16 UniGR included)")
+        f"(the bf16 UniGR included), {(peak - resident) / 2**30:.2f} GiB above the resident")
     for k in TRAIN_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"train: {k} was not launched")
@@ -3080,7 +3431,7 @@ def train_phase(model, frames, seed, read_path) -> dict:
     t0 = time.perf_counter()
     moved, frozen_same, frozen = [], 0, 0
     for n, p in model.named_parameters():
-        same = torch.equal(p.detach().cpu(), before[n])
+        same = bits_digest(p) == before[n]
         if n in opt.params:
             moved.append((n, not same))
         else:
@@ -3114,6 +3465,17 @@ def train_phase(model, frames, seed, read_path) -> dict:
         return out["loss"].item(), grads
 
     loss_k, grads_k = loss_and_grads()
+    # the run-to-run spread of the kernel route: the same backward again
+    # (the masks' bilinear resizes add with atomics in their backward)
+    loss_k2, grads_k2 = loss_and_grads()
+    rel_s, _, glob_s = compare_grads(grads_k2, grads_k)
+    spread = (glob_s, rel_s[0][0])
+    del grads_k2
+    log(f"train: kernel route against itself, same weights and batch: loss {loss_k2:.6f} vs "
+        f"{loss_k:.6f} (bit-equal {loss_k2 == loss_k}); all trainable gradients as one vector "
+        f"rel L2 {glob_s:.3e}, worst tensor {rel_s[0][1]} {rel_s[0][0]:.3e}")
+    if loss_k2 != loss_k:
+        raise AssertionError("train: the kernel route's forward is not deterministic")
     set_plain_attention(model, True)
     loss_p, grads_p = loss_and_grads()
     # the plain route upstream of a kernel-route decoder: the decoder's code
@@ -3150,9 +3512,111 @@ def train_phase(model, frames, seed, read_path) -> dict:
     if (loss_rel > LOSS_TOL or glob_p > GRAD_TOL or rel_b[0][0] > GRAD_TOL
             or max(key_p, key_b) > GRAD_TOL or loss_b != loss_k):
         raise AssertionError("train: the kernel route's gradients disagree with the plain route")
-    del grads_k, grads_p, grads_u, grads_b, opt, state, step, batch
+    frozen_sec, frozen_wall = dict(step.seconds), walls[-1]
+    del grads_p, grads_u, grads_b, opt, state, step
     torch.cuda.empty_cache()
-    return {"train": path}
+    paths = {"train": path}
+    paths.update(unfrozen_step(model, batch, tcfg, loss_k, grads_k, spread, frozen_sec,
+                               frozen_wall, peak - resident, read_path))
+    del grads_k, batch
+    torch.cuda.empty_cache()
+    return paths
+
+
+def unfrozen_step(model, batch, tcfg, frozen_loss, frozen_grads, spread, frozen_sec,
+                  frozen_wall, frozen_extra, read_path) -> dict:
+    """Phase 6's unfrozen step: the same model with `freeze_sam_backbone`
+    off, on the same weights and batch as `frozen_loss` and `frozen_grads`
+    (the kernel route's loss and trainable gradients): the loss bit-equal
+    to the frozen one, the image encoder's gradients (non-zero in every
+    Hiera stage and the neck), the trainable gradients within
+    UNFROZEN_SPREADS times the frozen route's own run-to-run `spread` (rel
+    L2 of all of them as one vector, of the worst tensor), then one timed
+    step (lr fixed at the config's, so
+    that the trainable tensors move) leaving the encoder's weights
+    bit-identical; its seconds and its peak memory above the resident beside
+    the frozen steps' (`frozen_extra` bytes). Returns its path."""
+    import torch
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.train.step import build_train_step, make_train_state
+
+    frozen_cfg = model.cfg
+    model.cfg = frozen_cfg.replace(seg=frozen_cfg.seg.replace(freeze_sam_backbone=False))
+    try:
+        state, opt = make_train_state(tcfg, model)
+        encoder = opt.grad_only
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = model.train_forward(**batch)
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        path = read_path()
+        grads = {n: p.grad for n, p in opt.params.items()}
+        ends = list(itertools.accumulate(frozen_cfg.sam2.hiera.stages))
+        reached = set()  # the Hiera stages (0-based) and "neck" with a non-zero gradient
+        for n, p in encoder.items():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"train unfrozen: {n} has no finite gradient")
+            if p.grad.abs().max() > 0:
+                block = re.search(r"\.trunk\.blocks_(\d+)\.", n)
+                if block is not None:
+                    reached.add(sum(int(block.group(1)) >= e for e in ends))
+                elif ".neck." in n:
+                    reached.add("neck")
+        rel, _, glob = compare_grads(grads, frozen_grads)
+        n_enc = sum(p.numel() for p in encoder.values())
+        loss = out["loss"].item()
+        tol = [UNFROZEN_SPREADS * x for x in spread]
+        log(f"train unfrozen (freeze_sam_backbone=False), same weights and batch: loss "
+            f"{loss:.6f} vs the frozen {frozen_loss:.6f} (bit-equal {loss == frozen_loss}); "
+            f"{len(encoder)} image encoder tensors ({n_enc / 1e6:.1f} M elements) take "
+            f"gradients, non-zero in {sorted(reached, key=str)} (stages 0-{len(ends) - 1}, "
+            f"the neck); trainable gradients against the frozen step's: as one vector rel L2 "
+            f"{glob:.3e} (tol {tol[0]:.3e} = {UNFROZEN_SPREADS} x the frozen route's spread), "
+            f"worst tensor {rel[0][1]} {rel[0][0]:.3e} (tol {tol[1]:.3e})")
+        if loss != frozen_loss:
+            raise AssertionError("train unfrozen: the loss differs from the frozen step's")
+        if ({*range(len(ends)), "neck"} - reached) or glob > tol[0] or rel[0][0] > tol[1]:
+            raise AssertionError("train unfrozen: the encoder's gradients do not reach every "
+                                 "stage, or the trainable gradients differ from the frozen "
+                                 "step's by more than its own run-to-run spread")
+        opt.zero_grad()
+        del out, grads
+        # one step: the trainable tensors move, the encoder stays
+        before = {n: bits_digest(p) for n, p in encoder.items()}
+        moved_before = {n: bits_digest(p) for n, p in opt.params.items()}
+        opt.schedule = lambda count: tcfg.lr
+        step = build_train_step(lambda m, mb: m.train_forward(**mb), opt, timed=True)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state, aux = step(state, [batch])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        extra = torch.cuda.max_memory_allocated() - resident
+        same = sum(bits_digest(p) == before[n] for n, p in encoder.items())
+        moved = sum(bits_digest(p) != moved_before[n] for n, p in opt.params.items())
+        sec = step.seconds
+        log(f"train unfrozen step: {wall:.3f} s (forward {sec['forward']:.3f}, backward "
+            f"{sec['backward']:.3f}, optimizer {sec['optimizer']:.3f}) against the frozen "
+            f"step's {frozen_wall:.3f} s (forward {frozen_sec['forward']:.3f}, backward "
+            f"{frozen_sec['backward']:.3f}, optimizer {frozen_sec['optimizer']:.3f}); "
+            f"peak memory {extra / 2**30:.2f} GiB above the resident against "
+            f"{frozen_extra / 2**30:.2f}; "
+            f"loss {float(aux['loss']):.5f}; encoder tensors bit-identical after the update "
+            f"{same} of {len(encoder)}, trainable tensors moved {moved} of {len(opt.params)}")
+        if same != len(encoder) or not moved or not math.isfinite(float(aux["loss"])):
+            raise AssertionError("train unfrozen: the optimizer touched the encoder, or moved "
+                                 "nothing")
+    finally:
+        model.cfg = frozen_cfg
+        for p in model.grounding_encoder.image_encoder.parameters():
+            p.requires_grad_(False)
+            p.grad = None
+    del state, opt, step
+    return {"train_unfrozen": path}
 
 
 def bits_digest(t) -> int:
@@ -3168,6 +3632,28 @@ def bits_digest(t) -> int:
         w = torch.arange(i, i + c.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
         total += (c * w).sum()
     return int(total)
+
+
+def assemble_once(assemble, draws, model, workers=8, keep=lambda key: False,
+                  skip=lambda key: False):
+    """`train.__main__.assemble_params` as the train CLI's `build` calls it,
+    whose draws a second call copies: the first call keeps a host copy of
+    every tensor it fills (and of what `keep` returned) in `draws`; a later
+    call that finds every tensor it would fill there, with the model's
+    shape and dtype, copies them instead of drawing (the same values)."""
+    import torch
+
+    todo = {k: t for k, t in model.state_dict().items() if not skip(k)}
+    if todo and all(k in draws and draws[k][0].shape == t.shape and draws[k][0].dtype == t.dtype
+                    for k, t in todo.items()):
+        with torch.no_grad():
+            for k, t in todo.items():
+                t.copy_(draws[k][0])
+        return {k: draws[k][1] for k in todo if keep(k) and draws[k][1] is not None}
+    kept = assemble(model, workers=workers, keep=keep, skip=skip)
+    for k, t in todo.items():
+        draws[k] = (t.detach().to("cpu", copy=True), kept.get(k))
+    return kept
 
 
 class CountedStep:
@@ -3195,12 +3681,13 @@ class CountedStep:
         return out
 
 
-def train_cli_phase(seed: int, card_line: str, read_path) -> dict:
+def train_cli_phase(seed: int, card_line: str, read_path):
     """`python -m rga3_tpu_torch.train`'s `main` at the release config on a
     synthetic tree: one epoch, then an auto-resumed second (see the module
     docstring, 6b), under a process group of one rank over NCCL, which it
     tears down after. Works under build/train_cli/ and deletes it. Returns
-    the cold step's path (launches, calls)."""
+    the cold step's path (launches, calls) and the export read back (the
+    state dict phase 6c's reference is built from)."""
     import socket
 
     import torch
@@ -3222,7 +3709,7 @@ def train_cli_phase(seed: int, card_line: str, read_path) -> dict:
         dist.destroy_process_group()
 
 
-def _train_cli_runs(seed: int, card_line: str, read_path) -> dict:
+def _train_cli_runs(seed: int, card_line: str, read_path):
     """Phase 6b's two runs of the CLI (see `train_cli_phase`)."""
     import gc
     import shutil
@@ -3297,6 +3784,11 @@ def _train_cli_runs(seed: int, card_line: str, read_path) -> dict:
     cold = {}
     real_build = cli.build_train_step
     cli.build_train_step = lambda *a, **k: CountedStep(real_build(*a, **k), read_path, cold)
+    # the two runs draw the same --model_dir dummy parameters: run 2 copies
+    # run 1's (the resume restores the trainable ones from the checkpoint)
+    real_assemble = cli.assemble_params
+    draws = {}
+    cli.assemble_params = lambda *a, **k: assemble_once(real_assemble, draws, *a, **k)
     try:
         t0 = time.perf_counter()
         run1 = cli.main(base + ["--epochs", "1", "--loss_log", os.path.join(work, "loss1.json")])
@@ -3347,10 +3839,14 @@ def _train_cli_runs(seed: int, card_line: str, read_path) -> dict:
         seen["count"], seen["step"] = state.opt.count, state.step
         seen["digest"] = {n: bits_digest(t) for n, t in checkpoints.state_tensors(state).items()}
 
-    t0 = time.perf_counter()
-    run2 = cli.main(base + ["--epochs", "2", "--loss_log", os.path.join(work, "loss2.json")],
-                    on_restore=on_restore)
-    wall2 = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        run2 = cli.main(base + ["--epochs", "2", "--loss_log", os.path.join(work, "loss2.json")],
+                        on_restore=on_restore)
+        wall2 = time.perf_counter() - t0
+    finally:
+        cli.assemble_params = real_assemble
+        draws.clear()
     report("run 2", run2, wall2)
     state = run2["state"]
     st = run2["steps"][0]
@@ -3406,7 +3902,7 @@ def _train_cli_runs(seed: int, card_line: str, read_path) -> dict:
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     found = {}
-    busy = device_breakdown(lambda: step(state, mbs), host=False, match="nccl", found=found)
+    busy = device_breakdown(lambda: step(state, mbs), match="nccl", found=found)
     nccl_ms, nccl_n = found["nccl"]
     log(f"profile (train cli step, {accum} micro-batches): device busy in the traced step / "
         f"wall of the untraced warm step: {busy:.1f} / {warm * 1e3:.1f} ms = "
@@ -3421,12 +3917,12 @@ def _train_cli_runs(seed: int, card_line: str, read_path) -> dict:
         f"{peak_flops_per_chip() / 1e12:.0f} TFLOP/s bf16 peak; {card_line}")
     # the checkpoints were read back above: their disk goes to the export
     shutil.rmtree(ckpt)
-    export_run(state, card_line)
+    exported = export_run(state, card_line)
     del run2, state, mbs, lm, step
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
-    return {"train_cli": cold["path"]}
+    return {"train_cli": cold["path"]}, exported
 
 
 def kernel_wrappers() -> dict:
@@ -3860,15 +4356,16 @@ def second_card_check(seed: int) -> None:
         raise AssertionError(f"second card: PyTorch's current device moved to {before}")
 
 
-def device_breakdown(run, top: int = 20, host: bool = True, match: str = None,
+def device_breakdown(run, top: int = 20, host: bool = False, match: str = None,
                      found: dict = None) -> float:
     """Run `run()` under torch.profiler, print the device time by kernel
     name and the host wall time around it, and return the device busy ms
-    (the tracer slows the host, so that wall time is not the call's).
-    `host=False` traces the device alone (a long run's host events take
-    minutes to aggregate) and prints no host ops. With `match`, the device
-    ms and launches of the kernels whose name holds it go into
-    `found[match]`."""
+    (the tracer slows the host, so that wall time is not the call's). The
+    device's events are summed straight from the trace's raw events (the
+    profiler's own aggregation of a long run's events takes tens of
+    seconds); `host=True` also traces the host and prints its ops by self
+    CPU time (the profiler's aggregation). With `match`, the device ms and
+    launches of the kernels whose name holds it go into `found[match]`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3879,20 +4376,23 @@ def device_breakdown(run, top: int = 20, host: bool = True, match: str = None,
         run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    averages = prof.key_averages()
-    evs = [e for e in averages if e.device_type == DeviceType.CUDA]
-    evs.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    kernels = {}  # name -> [device ms, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    busy_ms = sum(ms for ms, _ in kernels.values())
     log(f"profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall (traced); "
-        f"{len(evs)} kernel names; top {top}:")
-    for e in evs[:top]:
-        log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:100]}")
+        f"{len(kernels)} kernel names; top {top}:")
+    for name, (ms, n) in ranked[:top]:
+        log(f"  {ms:9.2f} ms {n:6d}x  {name[:100]}")
     if match is not None:
-        hits = [e for e in evs if match in e.key.lower()]
-        found[match] = (sum(e.self_device_time_total for e in hits) / 1e3,
-                        sum(e.count for e in hits))
+        hits = [v for name, v in kernels.items() if match in name.lower()]
+        found[match] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
     if host:
-        ops = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+        ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                      key=lambda e: -e.self_cpu_time_total)
         log(f"profile: host ops by self CPU time (traced, so inflated), top {top // 2}:")
         for e in ops[:top // 2]:
@@ -3901,9 +4401,10 @@ def device_breakdown(run, top: int = 20, host: bool = True, match: str = None,
     return busy_ms
 
 
-def export_run(state, card_line: str) -> None:
+def export_run(state, card_line: str) -> dict:
     """Phase 6b's end: its trained state exported into build/export/ and
-    read back on the host, bit-equal to the merged f32 state."""
+    read back on the host, bit-equal to the merged f32 state. Returns the
+    state dict read back."""
     import torch
     from rga3_tpu_torch.models.qwen25vl.loader import load_unigr_state_dict
     from rga3_tpu_torch.train import export
@@ -3930,6 +4431,7 @@ def export_run(state, card_line: str) -> None:
         f"{sum(k.endswith(('q_proj.weight', 'v_proj.weight')) for k in want)} q/v weights")
     if differ or set(got) != set(want) or len(got) != n:
         raise AssertionError(f"export: the reloaded state differs: {differ[:5]}")
+    return got
 
 
 def host_available() -> int:
@@ -3972,16 +4474,17 @@ def polygon_check(seed: int) -> None:
         f"{differ} differ ({time.perf_counter() - t0:.2f} s)")
 
 
-def handoff_phase(frames, card_line: str, read_path) -> dict:
+def handoff_phase(frames, card_line: str, read_path, exported: dict) -> dict:
     """Phase 6c (see the module docstring): phase 6b's export quantized by
-    the CLI and served. Returns the served requests' paths."""
+    the CLI and served; the in-process reference built from `exported`, the
+    export as 6b read it back (bit-equal to the state it wrote), which is
+    emptied. Returns the served requests' paths."""
     import gc
 
     import numpy as np
     import torch
     from rga3_tpu_torch.data.processor import QwenVLProcessor
     from rga3_tpu_torch.evaluation.segmentor import UniGRChat, UniGRSegmentor
-    from rga3_tpu_torch.models.qwen25vl.loader import load_unigr_state_dict
     from rga3_tpu_torch.models.unigr import build as unigr_build
     from rga3_tpu_torch.models.unigr.model import UniGR
     from rga3_tpu_torch.ops.attention import reset_launches
@@ -3996,6 +4499,26 @@ def handoff_phase(frames, card_line: str, read_path) -> dict:
     shutil.rmtree(q4, ignore_errors=True)
     paths = {}
     proc = QwenVLProcessor.from_pretrained("dummy")
+    # the in-process reference: the export as read back in 6b, quantized on
+    # the card, its float tensors in the served model's dtype
+    t0 = time.perf_counter()
+    ref32 = qc.model_for(exported, "unigr", "cuda")
+    ref32.load_state_dict(exported, strict=True)
+    exported.clear()
+    quantize_for_serving(ref32.qwen, "int4")
+    qcfg = ref32.cfg.qwen
+    ref = UniGR(ref32.cfg.replace(
+        qwen=qcfg.replace(text=qcfg.text.replace(quant_int4=True),
+                          vision=qcfg.vision.replace(quant_int8=True)),
+        seg=ref32.cfg.seg.replace(seg_token_id=proc.seg_token_id)),
+        device="cuda", dtype=torch.bfloat16)
+    ref.load_state_dict(ref32.state_dict(), strict=True)
+    ref.eval()
+    del ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"handoff: in-process reference (6b's read-back of the export, quantize_for_serving "
+        f"int4, {ref.dtype} floats) in {time.perf_counter() - t0:.2f} s")
     # the quantize CLI on the card
     t0 = time.perf_counter()
     qc.main(["--model_dir", src, "--out", q4, "--bits", "4"])
@@ -4022,28 +4545,6 @@ def handoff_phase(frames, card_line: str, read_path) -> dict:
     log(f"handoff: build_service --model_dir {os.path.relpath(q4, HERE)} in "
         f"{time.perf_counter() - t0:.2f} s; memory_allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    # the in-process reference: the export reloaded, quantized on the card,
-    # its float tensors in the served model's dtype
-    t0 = time.perf_counter()
-    sd = load_unigr_state_dict(src)
-    ref32 = qc.model_for(sd, "unigr", "cuda")
-    ref32.load_state_dict(sd, strict=True)
-    del sd
-    quantize_for_serving(ref32.qwen, "int4")
-    qcfg = ref32.cfg.qwen
-    ref = UniGR(ref32.cfg.replace(
-        qwen=qcfg.replace(text=qcfg.text.replace(quant_int4=True),
-                          vision=qcfg.vision.replace(quant_int8=True)),
-        seg=ref32.cfg.seg.replace(seg_token_id=proc.seg_token_id)),
-        device="cuda", dtype=served.dtype)
-    ref.load_state_dict(ref32.state_dict(), strict=True)
-    ref.eval()
-    del ref32
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"handoff: in-process reference (export reloaded, quantize_for_serving int4, "
-        f"{served.dtype} floats) in {time.perf_counter() - t0:.2f} s")
-
     sd, want = served.state_dict(), ref.state_dict()
     differ = [k for k in want if k not in sd or sd[k].dtype != want[k].dtype
               or not torch.equal(sd[k], want[k])]
@@ -4279,7 +4780,7 @@ def main() -> int:
     log(f"main path, warm call: segment_video_multi {warm:.3f} s; "
         "phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in seg.phase_seconds.items()))
     # where the device time goes: one more call, traced
-    busy = device_breakdown(lambda: seg.segment_video_multi(frames, expressions))
+    busy = device_breakdown(lambda: seg.segment_video_multi(frames, expressions), host=True)
     log(f"profile: device busy in the traced call / wall of the untraced warm call "
         f"of this run: {busy:.1f} / {warm * 1e3:.1f} ms = {busy / (warm * 1e3):.3f}")
     log(f"phase main_path: {time.perf_counter() - t0:.2f} s")
@@ -4388,6 +4889,16 @@ def main() -> int:
     paths.update(tracker_phase(model, proc, frames, expressions, read_path))
     log(f"phase tracker: {time.perf_counter() - t0:.2f} s")
 
+    # ---- 5c. the legacy UniGR (SAM-v1 ViT-H) on phase 3's Qwen2.5-VL
+    t0 = time.perf_counter()
+    paths.update(legacy_phase(model, proc, frames, expressions, seed, card_line, read_path))
+    log(f"phase legacy: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 5d. the main path's switches, each against its default route
+    t0 = time.perf_counter()
+    paths.update(switches_phase(model, proc, frames, expressions, masks, card_line, read_path))
+    log(f"phase switches: {time.perf_counter() - t0:.2f} s")
+
     # ---- 6. train: the UniGR train step at the same width, on these weights
     t0 = time.perf_counter()
     paths.update(train_phase(model, frames, seed, read_path))
@@ -4398,14 +4909,16 @@ def main() -> int:
     # ---- 6b. the training entry point at the release config, with a resume,
     # under a process group of one rank (NCCL)
     t0 = time.perf_counter()
-    paths.update(train_cli_phase(seed, card_line, read_path))
+    cli_paths, exported = train_cli_phase(seed, card_line, read_path)
+    paths.update(cli_paths)
     log(f"phase train_cli: {time.perf_counter() - t0:.2f} s")
 
     # ---- 6c. hand-off: the polygons against OpenCV, then 6b's export
     # quantized by the CLI and served
     t0 = time.perf_counter()
     polygon_check(seed)
-    paths.update(handoff_phase(frames, card_line, read_path))
+    paths.update(handoff_phase(frames, card_line, read_path, exported))
+    del exported
     log(f"phase handoff: {time.perf_counter() - t0:.2f} s")
 
     # ---- 6d. the tensor axis: two ranks (processes) on this card over gloo
@@ -4463,6 +4976,7 @@ def main() -> int:
     # ---- 8. small models on the card against the same models on the CPU
     t0 = time.perf_counter()
     small_reference(seed)
+    small_legacy_reference(seed)
     small_chat_reference(seed)
     log(f"phase reference: {time.perf_counter() - t0:.2f} s")
 

@@ -60,9 +60,11 @@ class SegHeadConfig(ConfigBase):
 @dataclass(frozen=True)
 class MeshConfig(ConfigBase):
     """The ranks' mesh, the JAX package's fields: `data` splits the batch
-    (and may cross nodes), `fsdp` shards the trainable state and the
-    gradients (ZeRO-2, inside one node), `tensor` is the LM's tensor axis
-    (not ported: `parallel.make_mesh` raises for tensor > 1)."""
+    (and may cross nodes); `fsdp` shards the trainable state and the
+    gradients (ZeRO-2) and the frozen weights (gathered around each block's
+    forward), inside one node; `tensor` is the LM's tensor axis (heads, MLP
+    columns and the vocabulary split over its ranks). `parallel.make_mesh`
+    raises only for a grid that does not match the ranks and their nodes."""
 
     data: int = 1
     fsdp: int = 1

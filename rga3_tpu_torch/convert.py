@@ -24,6 +24,11 @@ and only the leaves change:
     and `scale` / `scale_g` f32 (a `scale` beside a `kernel_q` is not a
     norm's). Every other leaf is cast to `dtype`.
 
+Stacked layers (flax's `nn.scan`: `<base>_scan/<layer>/...` with a
+leading layer axis, the JAX package's `scan_layers` / `scan_blocks`) map
+onto the port's per-layer modules (`<base>_<i>`); `flax_tree_from_torch`
+stacks them again for a module whose config scans (`flax_scan`).
+
 Every subtree maps: a key the port lacks makes
 `load_state_dict(strict=True)` fail. `flax_tree_from_torch` is the
 inverse, from a module (whose types tell a Dense kernel from an Embed
@@ -65,6 +70,69 @@ def _flatten(tree: Tree, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
+SCAN = "_scan"  # flax's stacked layers: `<base>_scan/<layer>/...`
+
+
+def _unstack(flat: Dict[tuple, np.ndarray]) -> Dict[tuple, np.ndarray]:
+    """A flat tree with every stacked leaf `(..., <base>_scan, <layer>,
+    ...)` split into its layers `(..., <base>_<i>, ...)`."""
+    out = {}
+    for path, x in flat.items():
+        at = next((i for i, p in enumerate(path[:-2]) if p.endswith(SCAN)), None)
+        if at is None:
+            out[path] = x
+            continue
+        base = path[at][: -len(SCAN)]
+        for i in range(x.shape[0]):
+            out[path[:at] + (f"{base}_{i}",) + path[at + 2:]] = x[i]
+    return out
+
+
+def scan_position(model: torch.nn.Module, key: str) -> Optional[Tuple[str, int, int]]:
+    """For a state-dict entry of a layer that the JAX package stacks (a
+    module with `flax_scan`, such as `QwenLM` under `scan_layers`): (the
+    entry's key with the layer's name replaced by the stacked path, as
+    `<base>_scan.<layer>`, the layer's index, the number of layers); else
+    None."""
+    parts = key.split(".")
+    module = model
+    for i, part in enumerate(parts[:-1]):
+        scan = getattr(module, "flax_scan", None)
+        if scan is not None and part.startswith(scan[0]) and part[len(scan[0]):].isdigit():
+            count = sum(1 for name, _ in module.named_children() if name.startswith(scan[0])
+                        and name[len(scan[0]):].isdigit())
+            stacked = scan[1].replace("/", ".")
+            return (".".join(parts[:i] + [stacked] + parts[i + 1:]),
+                    int(part[len(scan[0]):]), count)
+        module = getattr(module, part)
+    return None
+
+
+def _stack_scanned(model: torch.nn.Module, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """`tree` (flax_tree_from_torch's, per layer) with the layers of each
+    module with `flax_scan` stacked under the JAX package's scanned path."""
+    for mpath, module in model.named_modules():
+        scan = getattr(module, "flax_scan", None)
+        if scan is None:
+            continue
+        node = tree
+        for p in mpath.split(".") if mpath else ():
+            node = node[p]
+        prefix = scan[0]
+        names = sorted((k for k in node if k.startswith(prefix) and k[len(prefix):].isdigit()),
+                       key=lambda k: int(k[len(prefix):]))
+        layers = [_flatten(node.pop(k)) for k in names]
+        stacked: Dict[str, Any] = {}
+        for leaf_path in layers[0]:
+            sub = stacked
+            for p in leaf_path[:-1]:
+                sub = sub.setdefault(p, {})
+            sub[leaf_path[-1]] = np.stack([layer[leaf_path] for layer in layers])
+        outer, inner = scan[1].split("/")
+        node[outer] = {inner: stacked}
+    return tree
+
+
 QUANT_LEAVES = ("kernel_q", "kernel_q4", "scale_g")
 # flax's MultiHeadDotProductAttention: the DenseGeneral projections
 HEAD_PROJECTIONS = ("query", "key", "value")
@@ -76,11 +144,8 @@ def _leaf(path: tuple, x: np.ndarray, quantized: bool = False):
     name, parent = path[-1], path[-2] if len(path) > 1 else ""
     if quantized and (name in QUANT_LEAVES or name == "scale"):
         return name, x
-    if any(p.endswith("_scan") for p in path):
-        raise ValueError(
-            f"{'/'.join(path)}: scanned (stacked) layers are not supported; "
-            "unstack them first"
-        )
+    if any(p.endswith(SCAN) for p in path):
+        raise ValueError(f"{'/'.join(path)}: a stacked leaf; `_unstack` the tree first")
     if name == "kernel":
         if x.ndim == 2:
             return "weight", x.T
@@ -110,7 +175,7 @@ def torch_state_dict_from_flax(
     if set(params.keys()) == {"params"}:
         params = params["params"]
     out = {}
-    flat = _flatten(params)
+    flat = _unstack(_flatten(params))
     quant = {p[:-1] for p in flat if p[-1] in QUANT_LEAVES}
     for path, x in flat.items():
         quantized = path[:-1] in quant
@@ -175,16 +240,22 @@ def _flax_leaf(module: torch.nn.Module, parent: str, name: str, t: torch.Tensor)
 
 def flax_path_and_shape(model: torch.nn.Module, key: str, shape) -> Tuple[tuple, tuple]:
     """(flax parameter path without the top-level "params", flax shape) of
-    state-dict entry `key` of `model` with torch shape `shape`."""
+    state-dict entry `key` of `model` with torch shape `shape`. For a layer
+    the JAX package stacks (`scan_position`), the path is the stacked
+    leaf's and the shape one layer's."""
     parent, _, name = key.rpartition(".")
     module = model.get_submodule(parent) if parent else model
     leaf, _, _, fshape = _flax_layout(module, parent, name, tuple(shape))
+    scanned = scan_position(model, key)
+    if scanned is not None:
+        parent = scanned[0].rpartition(".")[0]
     return tuple(parent.split(".") if parent else ()) + (leaf,), fshape
 
 
 def torch_leaf(path: tuple, x: np.ndarray) -> np.ndarray:
-    """A flax leaf at `path` (an unquantized model's) in torch layout."""
-    return _leaf(path, x)[1]
+    """A flax leaf at `path` (an unquantized model's; one layer's for a
+    stacked path) in torch layout."""
+    return _leaf(tuple(p for p in path if not p.endswith(SCAN)), x)[1]
 
 
 @torch.no_grad()
@@ -201,7 +272,7 @@ def load_flax_tree(model: torch.nn.Module, params: Tree, dtype: torch.dtype = No
     if set(params.keys()) == {"params"}:
         params = params["params"]
     plan = getattr(model, "shard_plan", None)
-    flat = _flatten(params)
+    flat = _unstack(_flatten(params))
     quant = {p[:-1] for p in flat if p[-1] in QUANT_LEAVES}
     seen = set()
     for path, x in flat.items():
@@ -242,7 +313,7 @@ def flax_tree_from_torch(model: torch.nn.Module) -> Dict[str, Any]:
         for p in parent.split(".") if parent else ():
             node = node.setdefault(p, {})
         node[leaf] = np.asarray(arr, order="C")
-    return tree
+    return _stack_scanned(model, tree)
 
 
 def load_params_npz(path: str) -> Dict[str, object]:
@@ -330,7 +401,7 @@ def _moment_tensors(tree: Tree) -> Dict[str, np.ndarray]:
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     out = {}
-    for path, x in _flatten(tree).items():
+    for path, x in _unstack(_flatten(tree)).items():
         name, y = _leaf(path, np.asarray(x).astype(np.float32))
         out[".".join(path[:-1] + (name,))] = np.ascontiguousarray(y)
     return out

@@ -1,12 +1,17 @@
 """Referring video segmentation and free-form QA with UniGR, counterparts
-of `UniGRSegmentor` (its `device_preprocess=False` route) and `UniGRChat` in
-`rga3_tpu/evaluation/segmentor.py`.
+of `UniGRSegmentor` and `UniGRChat` in `rga3_tpu/evaluation/segmentor.py`.
 
 `segment_video_multi`: sparse frames to the MLLM with the teacher-forced
 "... Sure, [SEG]." conversation, the [SEG] hidden state projected to the
-SAM2 prompt, every frame encoded once by SAM2 in chunks, every expression
+SAM prompt, every frame encoded once by SAM in chunks, every expression
 decoded against the shared features, bilinear resize to the frame size and
-sigmoid > 0.5.
+sigmoid > 0.5. The frames reach SAM resized on the device: by default as
+the host path's uint8 frames (PIL's bicubic in two 8-bit passes), with
+`device_preprocess=True` as JAX's device route does it (a float cubic
+resize with antialiasing from the native uint8 frames, then the ImageNet
+statistics: no 8-bit pass, no clamp). A legacy UniGR (`UniGRLegacy`,
+SAM-v1) decodes one low-resolution mask a frame, which is resized to the
+frame size directly.
 
 `UniGRChat.answer` / `answer_batch`: KV-cached greedy decoding of an
 answer to a question about a video, images or text alone; with a draft
@@ -26,7 +31,7 @@ from ..models.qwen25vl.generate import greedy_generate, speculative_greedy_gener
 from ..models.qwen25vl.positions import get_rope_index
 from ..models.qwen25vl.vision import compute_vision_layout, layout_device_args
 from ..models.unigr.model import UniGR
-from ..ops.resize import resize_bilinear, resize_u8_bicubic_aa
+from ..ops.resize import resize_bilinear, resize_u8_bicubic_aa, sam_preprocess_frames_device
 
 
 def eval_seg_question(expression: str, benchmark: Optional[str] = None,
@@ -81,11 +86,13 @@ class UniGRSegmentor:
     vision layout)."""
 
     def __init__(self, model: UniGR, processor: QwenVLProcessor,
-                 num_frames_mllm: int = 8, sam_chunk: int = 8):
+                 num_frames_mllm: int = 8, sam_chunk: int = 8,
+                 device_preprocess: bool = False):
         self.model = model
         self.processor = processor
         self.num_frames_mllm = num_frames_mllm
         self.sam_chunk = sam_chunk
+        self.device_preprocess = device_preprocess
         self.phase_seconds: Dict[str, float] = {
             "llm": 0.0, "llm_processor": 0.0, "sam_encode": 0.0, "sam_decode": 0.0,
         }
@@ -126,27 +133,37 @@ class UniGRSegmentor:
         self.phase_seconds["llm"] += time.perf_counter() - t0
         return emb[0], has
 
+    def sam_frames(self, frames: Sequence[np.ndarray]) -> torch.Tensor:
+        """Up to `sam_chunk` frames as SAM's input, (chunk, S, S, 3), zero
+        frames padding the chunk: the host route's uint8 frames, or under
+        `device_preprocess` normalized f32 frames."""
+        size = self.model.sam_image_size
+        u8 = torch.as_tensor(np.stack(frames), device=self.model.device)
+        if self.device_preprocess:
+            x = sam_preprocess_frames_device(u8, size, pad_to=self.sam_chunk)
+        else:
+            x = resize_u8_bicubic_aa(u8, (size, size))
+            if len(frames) < self.sam_chunk:
+                x = torch.cat([x, x.new_zeros(self.sam_chunk - len(frames), *x.shape[1:])])
+        return x
+
     @torch.no_grad()
     def encode_frames(self, frames: Sequence[np.ndarray]) -> Tuple[torch.Tensor, ...]:
-        """SAM2 features (s0, s1, s2) of up to `sam_chunk` frames, zero
-        frames padding the chunk; resized on the device."""
+        """SAM features of up to `sam_chunk` frames (SAM2's (s0, s1, s2),
+        SAM-v1's image embedding alone), zero frames padding the chunk;
+        resized on the device."""
         t0 = time.perf_counter()
-        size = self.model.cfg.sam2.image_size
-        u8 = torch.as_tensor(np.stack(frames), device=self.model.device)
-        x = resize_u8_bicubic_aa(u8, (size, size))
-        if len(frames) < self.sam_chunk:
-            x = torch.cat([x, x.new_zeros(self.sam_chunk - len(frames), *x.shape[1:])])
-        feats = tuple(self.model.grounding_encoder.forward_image(x)["backbone_fpn"])
+        feats = self.model.encode_frames(self.sam_frames(frames))
         self._sync()
         self.phase_seconds["sam_encode"] += time.perf_counter() - t0
         return feats
 
     @torch.no_grad()
     def decode_logits(self, feats, emb: torch.Tensor) -> torch.Tensor:
-        """(chunk, S, S) mask logits at SAM resolution for one [SEG]."""
+        """(chunk, S, S) mask logits for one [SEG]: at SAM2's resolution, or
+        SAM-v1's low resolution (a quarter of its input's side)."""
         lang = emb[None, None, :].expand(self.sam_chunk, 1, emb.shape[-1])
-        out = self.model.grounding_encoder.decode_features_with_language(*feats, lang)
-        return out["high_res_masks"][:, 0]
+        return self.model.decode_logits(feats, lang)
 
     def segment_video(self, frames, expression: str,
                       question: Optional[str] = None) -> np.ndarray:

@@ -16,12 +16,14 @@ import json
 import multiprocessing as mp
 import os
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .jf_metrics import db_eval_boundary, db_eval_iou, r2vos_accuracy, r2vos_robustness
+
+PNG_WORKERS = 8  # threads encoding the mask PNGs
 
 
 def load_meta_expressions(ann_file: str) -> List[Dict]:
@@ -107,56 +109,66 @@ def run_inference(segmentor, data_root: str, split: str, out_dir: str, subset_id
     """Write per-frame PNG masks under out_dir/<video>/<exp_id>/ and return
     the number of expressions written. `benchmark` selects the question
     template and the layout; for `ytvos` the tree is the submission layout.
-    `seconds`, if given, accumulates the host seconds of frame loading
-    ("load_frames"), `segment_video_multi` ("segment") and PNG writing
-    ("write_png")."""
+    The PNGs are encoded on PNG_WORKERS threads (PIL releases the GIL while
+    it compresses), beside the next video's segmentation; the call returns
+    once every file is written. `seconds`, if given, accumulates the host
+    seconds of frame loading ("load_frames"), `segment_video_multi`
+    ("segment") and of the loop's wait on the PNG writes ("write_png")."""
     from PIL import Image
 
     from ..data.video import load_frames_from_dir
     from .segmentor import eval_seg_question
+
+    def write(mask, path):
+        Image.fromarray((mask * 255).astype(np.uint8)).save(path)
 
     clock = {} if seconds is None else seconds
     for key in ("load_frames", "segment", "write_png"):
         clock.setdefault(key, 0.0)
     ann, frames_root = resolve_layout(data_root, split, benchmark)
     jobs = load_meta_expressions(ann)
-    done = 0
     by_video: Dict[str, List[Dict]] = {}
     for i, job in enumerate(jobs):
         if i % subset_num == subset_idx:
             by_video.setdefault(job["video"], []).append(job)
 
-    for video, vjobs in by_video.items():
-        if max_jobs is not None and done >= max_jobs:
-            break
-        pending = []
-        for job in vjobs:
-            dst = os.path.join(out_dir, job["video"], job["exp_id"])
-            if os.path.isdir(dst) and len(os.listdir(dst)) == len(job["frames"]):
-                continue  # written by an earlier run
-            pending.append(job)
-        if max_jobs is not None:
-            pending = pending[:max_jobs - done]
-        if not pending:
-            continue
+    done, writes = 0, []
+    with ThreadPoolExecutor(PNG_WORKERS) as pool:
+        for video, vjobs in by_video.items():
+            if max_jobs is not None and done >= max_jobs:
+                break
+            pending = []
+            for job in vjobs:
+                dst = os.path.join(out_dir, job["video"], job["exp_id"])
+                if os.path.isdir(dst) and len(os.listdir(dst)) == len(job["frames"]):
+                    continue  # written by an earlier run
+                pending.append(job)
+            if max_jobs is not None:
+                pending = pending[:max_jobs - done]
+            if not pending:
+                continue
+            t0 = time.perf_counter()
+            frames = load_frames_from_dir(
+                os.path.join(frames_root, vjobs[0].get("frames_dir", video)))
+            t1 = time.perf_counter()
+            all_masks = segmentor.segment_video_multi(
+                frames, [job["exp"] for job in pending],
+                questions=[eval_seg_question(job["exp"], benchmark, is_sent=job["is_sent"])
+                           for job in pending])
+            t2 = time.perf_counter()
+            for job, masks in zip(pending, all_masks):
+                dst = os.path.join(out_dir, job["video"], job["exp_id"])
+                os.makedirs(dst, exist_ok=True)
+                writes += [pool.submit(write, m, os.path.join(dst, f"{name}.png"))
+                           for name, m in zip(job["frames"], masks)]
+                done += 1
+            clock["load_frames"] += t1 - t0
+            clock["segment"] += t2 - t1
+            clock["write_png"] += time.perf_counter() - t2
         t0 = time.perf_counter()
-        frames = load_frames_from_dir(
-            os.path.join(frames_root, vjobs[0].get("frames_dir", video)))
-        t1 = time.perf_counter()
-        all_masks = segmentor.segment_video_multi(
-            frames, [job["exp"] for job in pending],
-            questions=[eval_seg_question(job["exp"], benchmark, is_sent=job["is_sent"])
-                       for job in pending])
-        t2 = time.perf_counter()
-        for job, masks in zip(pending, all_masks):
-            dst = os.path.join(out_dir, job["video"], job["exp_id"])
-            os.makedirs(dst, exist_ok=True)
-            for name, m in zip(job["frames"], masks):
-                Image.fromarray((m * 255).astype(np.uint8)).save(os.path.join(dst, f"{name}.png"))
-            done += 1
-        clock["load_frames"] += t1 - t0
-        clock["segment"] += t2 - t1
-        clock["write_png"] += time.perf_counter() - t2
+        for w in writes:
+            w.result()
+        clock["write_png"] += time.perf_counter() - t0
     return done
 
 

@@ -4,8 +4,10 @@ by either package loads in the other. Presets match the released
 `Qwen2.5-VL-{3B,7B}-Instruct` HF configs.
 
 The port runs the float, int8 (weight-only or W8A8) and int4 paths with a
-bf16 or int8 KV cache; the scan and window-resident fields are kept for the
-configs' sake and rejected by the modules when set.
+bf16 or int8 KV cache. `scan_layers` / `scan_blocks` keep the modules and
+change only the JAX package's parameter tree (stacked layers, which
+`convert` reads and writes); `window_resident` keeps the vision tower's
+tokens in padded window order through its blocks.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 `rga3_tpu/models/qwen25vl/language.py`: causal flash attention with optional
 segment ids, M-RoPE, the LoRA adapters on q_proj / v_proj, the KV cache
 (bf16, or int8 with per-vector scales) and the int8 / int4 quantized
-projections (`QuantLinear`). Scanned layers are not ported; that config
-field raises.
+projections (`QuantLinear`). Under `scan_layers` the layers stay modules of
+their own; only the JAX package's parameter tree stacks them (`convert`).
 
 Over the mesh's tensor axis (`parallel.tensor.setup`, through
 `parallel.fsdp.shard_model`) each projection holds and computes its block:
@@ -410,9 +410,11 @@ class QwenLM(nn.Module):
 
     def __init__(self, cfg: QwenTextConfig, remat: Any = "none", **factory):
         super().__init__()
-        if cfg.scan_layers:
-            raise NotImplementedError("QwenTextConfig.scan_layers is not ported")
         self.cfg = cfg
+        # (module prefix, the JAX package's stacked path) under scan_layers:
+        # the layers are the same modules, the JAX tree stacks them
+        # (`layers_scan/layer/...` along a leading layer axis)
+        self.flax_scan = ("layers_", "layers_scan/layer") if cfg.scan_layers else None
         self.remat = remat_mode(remat)
         for i in range(cfg.num_hidden_layers):
             setattr(self, f"layers_{i}", DecoderLayer(cfg, **factory))

@@ -9,7 +9,8 @@ embedding as one matmul over pre-extracted patches, `depth` blocks, then the
 2x2 spatial merger. Full-attention blocks run the flash kernel with one
 segment per grid; windowed blocks run plain batched per-window attention
 over windows padded to the full tile (the JAX package computes that part
-outside Pallas too).
+outside Pallas too), gathered in and out per block or, under
+`window_resident`, once for the whole stack.
 """
 from __future__ import annotations
 
@@ -231,7 +232,12 @@ class VisionBlock(nn.Module):
         self.mlp_up = make_linear(cfg, d, f, True, **factory)
         self.mlp_down = make_linear(cfg, f, d, True, **factory)
 
-    def forward(self, x, cos, sin, grid_seg, win_pad, win_unpad, use_full: bool):
+    def forward(self, x, cos, sin, grid_seg, win_pad, win_unpad, use_full: bool,
+                resident_kv_seg: Optional[torch.Tensor] = None):
+        """`resident_kv_seg` (n_win, tile) set: `x` is the padded window
+        stream (`window_resident`), so window attention is a reshape into
+        whole windows with those key segments (1 marks a pad slot) and
+        full attention takes `grid_seg`, whose pad slots are -1."""
         cfg = self.cfg
         l, d = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
@@ -239,11 +245,18 @@ class VisionBlock(nn.Module):
         q = apply_rope(qkv[:, 0], cos, sin)
         k = apply_rope(qkv[:, 1], cos, sin)
         v = qkv[:, 2]
+        tile = (cfg.window_size // cfg.patch_size) ** 2
         if use_full:
             attend = mha_reference if self.plain_attention else flash_attention
             attn = attend(q[None], k[None], v[None], segment_ids=grid_seg[None])[0]
+        elif resident_kv_seg is not None:
+            nw = l // tile
+            attn = mha_reference(
+                q.reshape(nw, tile, h, hd), k.reshape(nw, tile, h, hd),
+                v.reshape(nw, tile, h, hd), segment_ids=torch.zeros_like(resident_kv_seg),
+                kv_segment_ids=resident_kv_seg,
+            ).reshape(l, h, hd)
         else:
-            tile = (cfg.window_size // cfg.patch_size) ** 2
             attn = uniform_window_attention(q, k, v, win_pad, win_unpad, tile)
         x = x + self.attn_proj(attn.reshape(l, d))
         normed = self.norm2(x)
@@ -254,14 +267,21 @@ class QwenVisionTower(nn.Module):
     """Vision tower over window-ordered patch tokens. `pixel_patches`
     (L, C * tps * ps^2) arrive in natural merge-unit order, uint8 (CLIP
     normalization runs here) or already normalized; the output is merged
-    tokens (L/4, out_hidden_size) in natural order."""
+    tokens (L/4, out_hidden_size) in natural order.
+
+    Under `window_resident` the tokens stay in padded window order through
+    the whole block stack (one gather in, one out; the pad slots carry
+    zeros in, are masked as keys in every block and dropped on the way
+    out), as the JAX package's resident route. Under `scan_blocks` the
+    blocks are the same modules; only the JAX package's parameter tree
+    differs (`blocks_scan/block/...`, stacked along a leading block axis),
+    which `convert` reads and writes (`flax_scan`)."""
 
     def __init__(self, cfg: QwenVisionConfig, **factory):
         super().__init__()
-        for flag in ("scan_blocks", "window_resident"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"QwenVisionConfig.{flag} is not ported")
         self.cfg = cfg
+        # (module prefix, the JAX package's stacked path) under scan_blocks
+        self.flax_scan = ("blocks_", "blocks_scan/block") if cfg.scan_blocks else None
         d = cfg.hidden_size
         feat = cfg.in_channels * cfg.temporal_patch_size * cfg.patch_size ** 2
         self.patch_embed = nn.Linear(feat, d, bias=False, **factory)
@@ -283,12 +303,21 @@ class QwenVisionTower(nn.Module):
             std = torch.tensor(OPENAI_CLIP_STD, device=dev).repeat_interleave(reps) * 255.0
             x = (x.float() - mean) / std
         x = self.patch_embed(x.to(dtype))[la["token_perm"]]  # window order
-        cos, sin = vision_rope_cos_sin(la["hpos"], la["wpos"], cfg.head_dim)
+        hpos, wpos, grid_seg, kv_seg = la["hpos"], la["wpos"], la["grid_seg"], None
+        if cfg.window_resident:
+            win_pad = la["win_pad"]
+            tile = (cfg.window_size // cfg.patch_size) ** 2
+            x, hpos, wpos = (_take_fill(t, win_pad) for t in (x, hpos, wpos))
+            grid_seg = torch.where(win_pad >= 0, _take_fill(grid_seg, win_pad), -1)
+            kv_seg = (win_pad < 0).to(torch.int32).reshape(-1, tile)
+        cos, sin = vision_rope_cos_sin(hpos, wpos, cfg.head_dim)
         for i in range(cfg.depth):
             x = getattr(self, f"blocks_{i}")(
-                x, cos, sin, la["grid_seg"], la["win_pad"], la["win_unpad"],
-                use_full=i in cfg.fullatt_block_indexes,
+                x, cos, sin, grid_seg, la["win_pad"], la["win_unpad"],
+                use_full=i in cfg.fullatt_block_indexes, resident_kv_seg=kv_seg,
             )
+        if cfg.window_resident:
+            x = _take_fill(x, la["win_unpad"])  # valid window order, budget pads 0
         x = self.merger_ln_q(x).reshape(-1, cfg.merge_unit * cfg.hidden_size)
         x = self.merger_fc2(F.gelu(self.merger_fc1(x)))
         return x[la["merged_reverse"]]  # natural order

@@ -187,7 +187,7 @@ class MultiScaleBlock(nn.Module):
 
         x = shortcut + out
         hidden = self.mlp_layers_0(self.norm2(x))
-        hidden = F.gelu(hidden, approximate="tanh" if cfg.gelu_tanh else "none")
+        hidden = F.gelu(hidden, approximate="tanh" if fb.gelu_variant(cfg.gelu_tanh) else "none")
         return x + self.mlp_layers_1(hidden)
 
 

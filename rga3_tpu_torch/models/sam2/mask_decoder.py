@@ -142,23 +142,45 @@ class MaskDecoder(nn.Module):
         object_score_logits = self.pred_obj_score_head(hs[:, 0])
         return masks, iou_pred, mask_tokens_out, object_score_logits
 
+    def _stability_scores(self, mask_logits):
+        """IoU of the mask thresholded at +delta and at -delta (1 where the
+        union is empty)."""
+        flat = mask_logits.flatten(-2)
+        delta = self.cfg.dynamic_multimask_stability_delta
+        area_i = (flat > delta).sum(-1).float()
+        area_u = (flat > -delta).sum(-1).float()
+        return torch.where(area_u > 0, area_i / area_u.clamp(min=1), torch.ones_like(area_u))
+
+    def dynamic_single_mask(self, all_masks, all_iou):
+        """The single-mask output: the first mask where it is stable enough,
+        else the best-IoU one of the multimask outputs."""
+        multi, multi_iou = all_masks[:, 1:], all_iou[:, 1:]
+        best = multi_iou.argmax(dim=-1)
+        bidx = torch.arange(all_masks.shape[0], device=all_masks.device)
+        best_masks, best_iou = multi[bidx, best][:, None], multi_iou[bidx, best][:, None]
+        single, single_iou = all_masks[:, :1], all_iou[:, :1]
+        stable = (self._stability_scores(single)
+                  >= self.cfg.dynamic_multimask_stability_thresh)
+        masks = torch.where(stable[..., None, None], single, best_masks)
+        return masks, torch.where(stable, single_iou, best_iou)
+
     def forward(self, image_embeddings, image_pe, sparse_prompt, dense_prompt,
                 high_res_features, multimask_output: bool, training: bool = False):
-        """`training` turns off the dynamic single-mask selection by
-        stability (the first mask is taken), as in the JAX package; that
-        selection itself is not on the ported path and raises."""
-        dynamic = self.cfg.dynamic_multimask_via_stability and not training
-        if not multimask_output and dynamic:
-            raise NotImplementedError(
-                "single-mask output (dynamic stability selection) is not "
-                "on the ported path"
-            )
+        """Masks, IoU predictions, the mask tokens for the object pointer and
+        the object-score logits. With one mask out, the dynamic selection by
+        stability (`dynamic_multimask_via_stability`) applies outside
+        training; in training, or without it, the first mask is taken."""
         masks, iou_pred, mask_tokens_out, object_score_logits = self.predict(
             image_embeddings, image_pe, sparse_prompt, dense_prompt,
             high_res_features,
         )
-        sel = slice(1, None) if multimask_output else slice(0, 1)
+        if multimask_output:
+            out_masks, out_iou = masks[:, 1:], iou_pred[:, 1:]
+        elif self.cfg.dynamic_multimask_via_stability and not training:
+            out_masks, out_iou = self.dynamic_single_mask(masks, iou_pred)
+        else:
+            out_masks, out_iou = masks[:, 0:1], iou_pred[:, 0:1]
         tokens = (mask_tokens_out[:, 1:]
                   if multimask_output and self.cfg.use_multimask_token_for_obj_ptr
                   else mask_tokens_out[:, 0:1])
-        return masks[:, sel], iou_pred[:, sel], tokens, object_score_logits
+        return out_masks, out_iou, tokens, object_score_logits

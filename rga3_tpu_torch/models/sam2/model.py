@@ -69,13 +69,16 @@ class Sam2Model(nn.Module):
                           language_embd: Optional[torch.Tensor] = None,
                           point_coords: Optional[torch.Tensor] = None,
                           point_labels: Optional[torch.Tensor] = None,
+                          mask_inputs: Optional[torch.Tensor] = None,
                           multimask_output: bool = True, training: bool = False):
         """The mask decoder on (B, s, s, C) features, prompted by
         `language_embd` (B, N, C), points (B, P, 2) pixels / (B, P) labels,
-        both or neither."""
+        both or neither, and optionally a mask (`mask_inputs` (B, 4s, 4s, 1)
+        logits, the dense prompt)."""
         cfg = self.cfg
         b = backbone_features.shape[0]
-        sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, batch=b)
+        sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, masks=mask_inputs,
+                                                batch=b)
         dt = self.sam_mask_decoder.dtype
         sparse = sparse.to(dt)
         if language_embd is not None:

@@ -1,15 +1,16 @@
 """SAM2 prompt encoder, counterpart of
 `rga3_tpu/models/sam2/prompt_encoder.py`: point prompts (or none: the
 padding point alone, as the language-prompted decode has) as the sparse
-embedding, `no_mask_embed` as the dense one. The mask-prompt branch's
-parameters are kept so that the JAX package's trees load strictly; its
-forward (`embed_masks`) is not ported: no ported path passes a mask prompt."""
+embedding; a mask prompt (`embed_masks`: two stride-2 convolutions with
+channel LayerNorm and GELU, then a 1x1 convolution), or else
+`no_mask_embed`, as the dense one."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .config import Sam2Config
 from .layers import ChannelLayerNorm, PositionEmbeddingRandom
@@ -26,7 +27,7 @@ class PromptEncoder(nn.Module):
             setattr(self, f"point_embeddings_{i}", nn.Embedding(1, d, **factory))
         self.not_a_point_embed = nn.Embedding(1, d, **factory)
         self.no_mask_embed = nn.Embedding(1, d, **factory)
-        mask_chans = 16  # mask-prompt branch (parameters only, see above)
+        mask_chans = 16  # the mask-prompt branch
         self.mask_downscaling_0 = nn.Conv2d(1, mask_chans // 4, 2, 2, **factory)
         self.mask_downscaling_1 = ChannelLayerNorm(mask_chans // 4, **factory)
         self.mask_downscaling_3 = nn.Conv2d(mask_chans // 4, mask_chans, 2, 2, **factory)
@@ -54,17 +55,32 @@ class PromptEncoder(nn.Module):
             out = out + torch.where(lab == i, emb, 0.0)
         return out
 
+    @staticmethod
+    def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def embed_masks(self, masks: torch.Tensor) -> torch.Tensor:
+        """(B, 4s, 4s, 1) mask prompt -> (B, s, s, C), in the branch's dtype."""
+        x = masks.to(self.mask_downscaling_0.weight.dtype)
+        x = F.gelu(self.mask_downscaling_1(self._conv(self.mask_downscaling_0, x)))
+        x = F.gelu(self.mask_downscaling_4(self._conv(self.mask_downscaling_3, x)))
+        return self._conv(self.mask_downscaling_6, x)
+
     def forward(self, point_coords: Optional[torch.Tensor] = None,
-                point_labels: Optional[torch.Tensor] = None, batch: int = 1
+                point_labels: Optional[torch.Tensor] = None,
+                masks: Optional[torch.Tensor] = None, batch: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sparse (B, P + 1, C) f32 embeddings of the points (coords (B, P, 2)
         in pixels, labels (B, P)), or of one padding point per row of
-        `batch` without them; dense (B, s, s, C) `no_mask_embed`."""
+        `batch` without them; dense (B, s, s, C): `embed_masks(masks)` of a
+        (B, 4s, 4s, 1) mask prompt, else `no_mask_embed`."""
         if point_coords is None:
             dev = self.no_mask_embed.weight.device
             point_coords = torch.zeros(batch, 1, 2, device=dev)
             point_labels = -torch.ones(batch, 1, dtype=torch.int32, device=dev)
         sparse = self.embed_points(point_coords, point_labels)
+        if masks is not None:
+            return sparse, self.embed_masks(masks)
         s = self.cfg.feat_size
         dense = self.no_mask_embed.weight[0][None, None, None].expand(
             sparse.shape[0], s, s, self.cfg.d_model

@@ -76,6 +76,20 @@ class UniGR(nn.Module):
             self.text_hidden_fcs(hidden), token_ids, self.cfg.seg.seg_token_id
         )
 
+    @property
+    def sam_image_size(self) -> int:
+        return self.cfg.sam2.image_size
+
+    def encode_frames(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """SAM2's features (s0, s1, s2) of (B, S, S, 3) frames."""
+        return tuple(self.grounding_encoder.forward_image(images)["backbone_fpn"])
+
+    def decode_logits(self, feats: Tuple[torch.Tensor, ...], lang: torch.Tensor) -> torch.Tensor:
+        """(B, S, S) mask logits at SAM2's resolution, one language prompt
+        (B, 1, C) a frame."""
+        out = self.grounding_encoder.decode_features_with_language(*feats, lang)
+        return out["high_res_masks"][:, 0]
+
     def train_forward(
         self,
         input_ids: torch.Tensor,  # (B, L)

@@ -55,6 +55,7 @@ rounds once.
 from __future__ import annotations
 
 import math
+import os
 from types import SimpleNamespace
 from typing import Optional
 
@@ -71,8 +72,15 @@ EPILOGUES = {"bias": 0, "gelu_tanh": 1, "gelu_erf": 2, "res_bf16": 3, "res_f32":
 
 
 def gelu_variant(cfg_tanh: Optional[bool] = None) -> bool:
-    """The GELU form: tanh unless the config field says otherwise. (The JAX
-    package also reads an RGA3_GELU_EXACT override; the port does not.)"""
+    """The GELU form, True for tanh: `RGA3_GELU_EXACT=1` (erf) or `=0`
+    (tanh) overrides the config field for the whole process, and without
+    either the field decides, tanh by default (the JAX package's rule, read
+    at each block's call as there)."""
+    env = os.environ.get("RGA3_GELU_EXACT", "")
+    if env == "1":
+        return False
+    if env == "0":
+        return True
     return True if cfg_tanh is None else bool(cfg_tanh)
 
 

@@ -2,7 +2,10 @@
 
 `resize_bilinear` is torch's `interpolate(mode="bilinear",
 align_corners=False)` without antialiasing, the half-pixel rule the JAX
-package's `jax.image.resize` follows. `resize_bicubic_torch` is torch's
+package's `jax.image.resize` follows. `sam_preprocess_frames_device` is the
+JAX package's device preprocessing of SAM frames: its `jax.image.resize`
+cubic with antialiasing (Keys a = -0.5, the weights renormalised at the
+edges) is torch's antialiased bicubic on float. `resize_bicubic_torch` is torch's
 bicubic (a=-0.75) without antialiasing. `resize_u8_bicubic_aa` stands in for
 PIL's bicubic resize of uint8 frames (the JAX package's host path): torch's
 antialiased bicubic follows PIL's filter and, run in PIL's two 8-bit passes,
@@ -134,3 +137,20 @@ def sam_normalize_maybe(images: torch.Tensor) -> torch.Tensor:
             "like raw pixels, not ImageNet-normalized frames"
         )
     return images
+
+
+def sam_preprocess_frames_device(frames_u8: torch.Tensor, size: int = 1024,
+                                 pad_to: int = 0) -> torch.Tensor:
+    """(T, H, W, 3) uint8 -> (max(T, pad_to), size, size, 3) f32: a cubic
+    resize with antialiasing in f32 (no 8-bit pass, no clamp), then the
+    ImageNet statistics, as the JAX package's device preprocessing; frames
+    beyond T, up to `pad_to`, are zero frames resized and normalized."""
+    x = frames_u8.permute(0, 3, 1, 2).float()
+    if tuple(x.shape[-2:]) != (size, size):
+        x = F.interpolate(x, size=(size, size), mode="bicubic", align_corners=False,
+                          antialias=True)
+    if x.shape[0] < pad_to:
+        x = torch.cat([x, x.new_zeros(pad_to - x.shape[0], *x.shape[1:])])
+    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.tensor(IMAGENET_STD, device=x.device)
+    return (x.permute(0, 2, 3, 1) - mean) / std

@@ -21,10 +21,10 @@ file of flag values, which flags given on the command line override.
 
 `--model_dir dummy` builds the parameters `scripts/train.py` builds from
 nothing: every leaf drawn from a numpy generator seeded with the crc32 of
-its flax path (`assemble_params`). The JAX script stacks the 3B / 7B
-decoder layers (scan), which renames their paths; the port does not scan,
-so at those sizes it draws each layer from its per-layer path
-(`qwen/lm/model/layers_<i>/...`), the tiny config's layout.
+its flax path (`assemble_params`). At 3B / 7B the LM's config scans its
+layers, as the JAX script's does, so each decoder leaf is the stacked
+`qwen/lm/model/layers_scan/layer/...` draw (layer by layer from its one
+generator); the port's modules stay per layer.
 
 Each step logs its model FLOPs (`utils.flops.unigr_train_step_flops`
 over its micro-batches) and, on the card, its MFU against the card's bf16
@@ -55,7 +55,8 @@ checkpoints (whole tensors, gathered over fsdp and tensor), and reports
 the val loop, whose metric it broadcasts so that every rank agrees on
 "best"; with a sharded model every rank runs the val loop with it (the
 sharded layers compute together), otherwise rank 0 alone. MFU is each
-rank's against one card's peak.
+rank's FLOPs (its rows; over `--mesh_tensor`, its share of the LM) against
+one card's peak.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ import numpy as np
 import torch
 
 from ..config import MeshConfig, SegHeadConfig, TrainConfig
-from ..convert import flax_path_and_shape, torch_leaf
+from ..convert import flax_path_and_shape, scan_position, torch_leaf
 from ..data.collate import collate
 from ..data.datasets import ImgVidHybridDataset
 from ..data.prefetch import PrefetchLoader
@@ -143,43 +144,69 @@ def assemble_params(model: torch.nn.Module, loaded: Optional[Dict[str, torch.Ten
     `scripts/train.py`'s `assemble_params` draws the flax leaf: zeros for
     LoRA B and biases, ones for `scale` / `g_weight`, otherwise
     N(0, 0.02) from `np.random.default_rng(crc32(flax path))` in float64,
-    cast to f32, then to the model's dtype. Leaves are drawn on `workers`
-    threads (numpy's generators release the GIL). Entries that `skip`
-    selects are left as they are (a resumed run restores them). A model cut
-    by `shard_model` keeps the rank's block of each whole leaf. Returns the
-    f32 draws of the entries `keep` selects (the rank's tensor block), on
-    the host (what the model holds rounded, where its dtype is narrower)."""
+    cast to f32, then to the model's dtype. A layer the JAX package stacks
+    (`convert.scan_position`: the LM at 3B / 7B, whose layers the JAX
+    script scans) has the stacked leaf's path and generator, drawn one
+    layer after another: a generator's normal stream does not depend on how
+    the draw is chunked, so layer i gets the stacked draw's values at index
+    i, and the host holds a layer at a time. Leaves are drawn on `workers`
+    threads (numpy's generators release the GIL), each layer's conversion
+    and copy to the model on `workers` more. Entries that `skip` selects
+    are left as they are (a resumed run restores them). A model cut by
+    `shard_model` keeps the rank's block of each whole leaf. Returns the f32
+    draws of the entries `keep` selects (the rank's tensor block), on the
+    host (what the model holds rounded, where its dtype is narrower)."""
     plan = getattr(model, "shard_plan", None)
     kept: Dict[str, torch.Tensor] = {}
     done = load_pretrained(model, (loaded or {}).items())
-    todo = []
 
     def local(key, x):
         return x if plan is None else plan.local(key, x)
 
+    # flax path -> (one layer's flax shape, layers, {layer index: (key, tensor)})
+    groups: Dict[tuple, Tuple[tuple, int, Dict[int, Tuple[str, torch.Tensor]]]] = {}
     for key, t in model.state_dict().items():
-        if key not in done and not skip(key):
-            shape = tuple(t.shape) if plan is None else plan.blocks[key].full_shape
-            todo.append((key, t, shape))
-
-    def draw(item):
-        key, t, whole = item
+        if key in done or skip(key):
+            continue
+        whole = tuple(t.shape) if plan is None else plan.blocks[key].full_shape
         path, shape = flax_path_and_shape(model, key, whole)
-        leaf = path[-1]
-        if leaf.endswith("lora_b") or "bias" in leaf:
-            t.zero_()
-        elif leaf in ("scale", "g_weight"):
-            t.fill_(1.0)
-        else:
-            rng = np.random.default_rng(zlib.crc32("/".join(path).encode()))
-            x = rng.normal(0, 0.02, shape).astype(np.float32)
-            x = torch.from_numpy(np.ascontiguousarray(torch_leaf(path, x)))
-            t.copy_(local(key, x))
-            if keep(key):
-                kept[key] = x if plan is None else plan.tensor_block(key, x).clone()
+        pos = scan_position(model, key)
+        index, count = (pos[1], pos[2]) if pos is not None else (0, 1)
+        groups.setdefault(path, (shape, count, {}))[2][index] = (key, t)
 
-    with ThreadPoolExecutor(max(1, workers)) as ex:
-        list(ex.map(draw, todo))
+    def write(path, key, t, x32):
+        x = torch.from_numpy(np.ascontiguousarray(torch_leaf(path, x32)))
+        t.copy_(local(key, x))
+        if keep(key):
+            kept[key] = x if plan is None else plan.tensor_block(key, x).clone()
+
+    def draw(item, convert):
+        path, (shape, count, entries) = item
+        leaf = path[-1]
+        if leaf.endswith("lora_b") or "bias" in leaf or leaf in ("scale", "g_weight"):
+            for _, t in entries.values():
+                t.fill_(0.0 if leaf not in ("scale", "g_weight") else 1.0)
+            return
+        rng = np.random.default_rng(zlib.crc32("/".join(path).encode()))
+        buf = np.empty(shape)
+        pending = []
+        for i in range(max(entries) + 1):
+            # = rng.normal(0, 0.02, shape): loc + scale * the standard draw
+            rng.standard_normal(out=buf)
+            np.multiply(buf, 0.02, out=buf)
+            buf += 0.0
+            if i in entries:
+                pending.append(convert.submit(write, path, *entries[i], buf.astype(np.float32)))
+                while len(pending) > 2:  # a few layers in flight
+                    pending.pop(0).result()
+        for f in pending:
+            f.result()
+
+    n = max(1, workers)
+    with ThreadPoolExecutor(n) as convert, ThreadPoolExecutor(n) as ex:
+        # the longest draws first
+        items = sorted(groups.items(), key=lambda kv: -math.prod(kv[1][0]) * kv[1][1])
+        list(ex.map(lambda item: draw(item, convert), items))
     return kept
 
 
@@ -261,8 +288,11 @@ def build(args, device: torch.device, resuming: bool = False, mesh=None):
     meta device and cut to this rank's blocks on `device` first."""
     proc = QwenVLProcessor.from_pretrained(args.model_dir)
     qcfg = qwen_config(args.model_size)
+    # the JAX script scans the big models' layers: their draws follow the
+    # stacked paths
     qcfg = qcfg.replace(text=qcfg.text.replace(lora_rank=args.lora_r,
-                                               lora_alpha=args.lora_alpha))
+                                               lora_alpha=args.lora_alpha,
+                                               scan_layers=args.model_size != "tiny"))
     scfg = tiny_sam2_config() if args.model_size == "tiny" else Sam2Config()
     cfg = UniGRConfig(qwen=qcfg, sam2=scfg, seg=SegHeadConfig(
         out_dim=scfg.d_model, seg_token_id=proc.seg_token_id,
@@ -392,13 +422,16 @@ def stage(batch: Dict[str, np.ndarray], device: torch.device) -> List[Dict[str, 
     return out
 
 
-def step_flops(cfg, micro_batches: List[Dict[str, Any]]) -> float:
-    """Model FLOPs of one step over `micro_batches` (`stage`'s output)."""
+def step_flops(cfg, micro_batches: List[Dict[str, Any]], tensor: int = 1) -> float:
+    """Model FLOPs of one step over `micro_batches` (`stage`'s output, this
+    rank's rows): over a tensor axis of `tensor` ranks, this rank's share
+    (`unigr_train_step_flops`)."""
     total = 0.0
     for mb in micro_batches:
         b, seq = mb["input_ids"].shape
         patches = mb["pixel_patches"].shape[0] if "pixel_patches" in mb else 0
-        total += unigr_train_step_flops(cfg, b, seq, mb["images_sam"].shape[1], patches)
+        total += unigr_train_step_flops(cfg, b, seq, mb["images_sam"].shape[1], patches,
+                                        tensor=tensor)
     return total
 
 
@@ -565,7 +598,7 @@ def main(argv: Optional[Sequence[str]] = None,
                     aux = {k: float(v) for k, v in aux.items()}
                     _sync(device)
                     seconds = time.perf_counter() - t1
-                    flops = step_flops(cfg, micro_batches)
+                    flops = step_flops(cfg, micro_batches, tensor=mesh.shape["tensor"])
                     summary["steps"].append({
                         "batch_idx": global_step, "aux": aux, "seconds": seconds,
                         "phases": dict(step_fn.seconds), "loader_wait": wait,

@@ -121,6 +121,9 @@ class MaskedAdamW:
         self.schedule = schedule or lr_schedule(cfg)
         self.mu_dtype = DTYPES[cfg.adam_mu_dtype]
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        # parameters that take gradients but no update (`build_optimizer`:
+        # the unfrozen SAM2 backbone)
+        self.grad_only: Dict[str, nn.Parameter] = {}
         self.count = 0
         self.mesh = mesh if mesh is not None and mesh.groups else None
         self.plan = getattr(model, "shard_plan", None)
@@ -243,9 +246,11 @@ class MaskedAdamW:
             self.synced[name] = g
 
     def zero_grad(self) -> None:
+        """Drop the gradients: the trainable parameters' and those of the
+        parameters that take gradients without updates (`grad_only`)."""
         self.grad_sum = {}
         self.synced = {}
-        for p in self.params.values():
+        for p in (*self.params.values(), *self.grad_only.values()):
             p.grad = None
 
     @torch.no_grad()
@@ -319,4 +324,26 @@ def build_optimizer(cfg: TrainConfig, model: nn.Module, master_dtype: torch.dtyp
     mask = trainable_mask(model)
     if mesh is not None and mesh.groups and getattr(model, "shard_plan", None) is None:
         shard_model(model, mesh, trainable=mask.get)
-    return MaskedAdamW(cfg, model, master_dtype, master_init, mesh=mesh)
+    opt = MaskedAdamW(cfg, model, master_dtype, master_init, mesh=mesh)
+    backbone = unfrozen_backbone(model)
+    if backbone:
+        if getattr(model, "shard_plan", None) is not None:
+            raise ValueError("the unfrozen SAM2 backbone's gradients are computed on a model "
+                             "that is not cut over ranks")
+        for p in backbone.values():
+            p.requires_grad_(True)
+        opt.grad_only = backbone
+    return opt
+
+
+def unfrozen_backbone(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """{name: parameter} of the SAM2 image encoder (trunk and neck) of a
+    UniGR whose `seg.freeze_sam_backbone` is off, else {}. As `jax.grad`
+    over the whole tree gives the JAX package's, these take gradients;
+    the trainability mask is unchanged, so the optimizer never updates
+    them."""
+    seg = getattr(getattr(model, "cfg", None), "seg", None)
+    if seg is None or seg.freeze_sam_backbone or not hasattr(model, "grounding_encoder"):
+        return {}
+    prefix = "grounding_encoder.image_encoder."
+    return {n: p for n, p in model.named_parameters() if n.startswith(prefix)}

@@ -255,8 +255,12 @@ def unigr_train_step_flops(
     seq: int,
     sam_frames: int,
     vision_patches: int = 0,
+    tensor: int = 1,
 ) -> float:
-    """One optimizer step (fwd + bwd) of UniGR.train_forward.
+    """One optimizer step (fwd + bwd) of UniGR.train_forward; over a
+    tensor axis of `tensor` ranks, one rank's share: the LM's FLOPs divided
+    among them (its heads, MLP columns and vocabulary are split), the
+    vision tower and SAM2 whole on every rank.
 
     Backward accounting:
     - LLM: frozen base + LoRA → forward (2NT) + activation-grad pass
@@ -284,7 +288,7 @@ def unigr_train_step_flops(
     freeze = cfg.seg.freeze_sam_backbone
     trunk_mult = 1.0 if freeze else 3.0
     return (
-        2.0 * lm_fwd
+        2.0 * lm_fwd / tensor
         + vis_fwd
         + trunk_mult * trunk_fwd
         + 3.0 * heads_fwd

@@ -15,6 +15,8 @@ from __future__ import annotations
 import json
 import os
 import struct
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
@@ -32,6 +34,7 @@ DTYPES = {
 }
 _FROM_TORCH = {t: name for name, (_, t) in DTYPES.items()}
 _FROM_NUMPY = {np.dtype(n): name for name, (n, _) in DTYPES.items() if name != "BF16"}
+WRITE_AHEAD = 2  # tensors copied to the host ahead of the one being written
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -58,22 +61,30 @@ def read_metadata(path: str) -> Dict[str, str]:
 def iter_file(path: str, framework: str = "pt") -> Iterator[Tuple[str, Array]]:
     """(name, tensor) for every tensor of the file, in file order: torch
     tensors (`framework="pt"`) or numpy arrays (`"np"`, BF16 as uint16).
-    Each tensor owns its memory (copied out of the mapped file)."""
+    Each tensor owns its memory, read into it straight from the file."""
     if framework not in ("pt", "np"):
         raise ValueError(f"framework must be 'pt' or 'np', got {framework!r}")
     header, start = read_header(path)
-    raw = np.memmap(path, dtype=np.uint8, mode="r")
-    for name, e in sorted(header.items(), key=lambda kv: kv[1]["data_offsets"][0]):
-        if e["dtype"] not in DTYPES:
-            raise ValueError(f"{path}: {name} has unsupported dtype {e['dtype']}")
-        np_dtype, torch_dtype = DTYPES[e["dtype"]]
-        b, end = e["data_offsets"]
-        arr = raw[start + b:start + end].view(np_dtype).reshape(e["shape"]).copy()
-        if framework == "np":
-            yield name, arr
-        else:
-            t = torch.from_numpy(arr)
-            yield name, t.view(torch_dtype) if e["dtype"] == "BF16" else t
+    with open(path, "rb", buffering=0) as f:
+        for name, e in sorted(header.items(), key=lambda kv: kv[1]["data_offsets"][0]):
+            if e["dtype"] not in DTYPES:
+                raise ValueError(f"{path}: {name} has unsupported dtype {e['dtype']}")
+            np_dtype, torch_dtype = DTYPES[e["dtype"]]
+            b, end = e["data_offsets"]
+            buf = np.empty(end - b, np.uint8)
+            f.seek(start + b)
+            view, got = memoryview(buf), 0
+            while got < len(buf):
+                n = f.readinto(view[got:])
+                if not n:
+                    raise ValueError(f"{path}: the file ends inside {name}")
+                got += n
+            arr = buf.view(np_dtype).reshape(e["shape"])
+            if framework == "np":
+                yield name, arr
+            else:
+                t = torch.from_numpy(arr)
+                yield name, t.view(torch_dtype) if e["dtype"] == "BF16" else t
 
 
 def load_file(path: str, framework: str = "pt") -> Dict[str, Array]:
@@ -109,8 +120,9 @@ def save_file(tensors: Mapping[str, Array], path: str,
     safetensors package does, with an optional `__metadata__`; the header
     is padded with spaces to a multiple of 8 bytes. The file is written
     under a temporary name, one tensor at a time (a tensor on the card is
-    copied to the host when its turn comes), and renamed into place, so an
-    interrupted write leaves any earlier file whole. Returns the bytes
+    copied to the host a few tensors ahead of its turn, on a thread of its
+    own, while the earlier ones are written), and renamed into place, so
+    an interrupted write leaves any earlier file whole. Returns the bytes
     written."""
     header: Dict[str, dict] = {}
     if metadata:
@@ -124,10 +136,14 @@ def save_file(tensors: Mapping[str, Array], path: str,
     text = json.dumps(header, separators=(",", ":")).encode()
     text += b" " * (-len(text) % 8)
     tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
+    with open(tmp, "wb") as f, ThreadPoolExecutor(1) as ex:
         f.write(struct.pack("<Q", len(text)))
         f.write(text)
-        for name in names:
-            f.write(_raw(tensors[name]).reshape(-1).view(np.uint8).data)
+        pending = deque(ex.submit(_raw, tensors[n]) for n in names[:WRITE_AHEAD])
+        for i, name in enumerate(names):
+            arr = pending.popleft().result()
+            if i + WRITE_AHEAD < len(names):
+                pending.append(ex.submit(_raw, tensors[names[i + WRITE_AHEAD]]))
+            f.write(arr.reshape(-1).view(np.uint8).data)
     os.replace(tmp, path)
     return 8 + len(text) + offset

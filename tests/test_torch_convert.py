@@ -119,6 +119,14 @@ def test_lora_and_npz_loader_match_the_jax_exporter():
 
 
 def test_scanned_trees_are_refused():
-    with pytest.raises(ValueError, match="scanned"):
-        torch_state_dict_from_flax(
-            {"lm": {"layers_scan": {"layer": {"kernel": np.zeros((2, 3, 4), np.float32)}}}})
+    """A stacked (scanned) leaf is refused where it would be taken as one
+    layer's; `torch_state_dict_from_flax` unstacks a scanned tree first."""
+    from rga3_tpu_torch.convert import _leaf
+
+    stacked = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    with pytest.raises(ValueError, match="stacked"):
+        _leaf(("lm", "layers_scan", "layer", "kernel"), stacked)
+    sd = torch_state_dict_from_flax({"lm": {"layers_scan": {"layer": {"kernel": stacked}}}})
+    assert set(sd) == {"lm.layers_0.weight", "lm.layers_1.weight"}
+    for i in range(2):
+        np.testing.assert_array_equal(sd[f"lm.layers_{i}.weight"].numpy(), stacked[i].T)

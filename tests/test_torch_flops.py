@@ -83,6 +83,18 @@ def test_flops_equal_jax(size):
     assert all(v > 0 for v in got.values())
 
 
+@pytest.mark.parametrize("tensor", [2, 4])
+def test_a_tensor_ranks_share_of_a_train_step(tensor):
+    """Over the tensor axis a rank counts the LM's FLOPs (its forward and
+    backward, 2x the forward) divided by the ranks, the rest whole."""
+    _, _, unigrs = configs("7b+hiera_l", tqc, tsc, SegHeadConfig, UniGRConfig)
+    for u in unigrs:
+        whole = tf.unigr_train_step_flops(u, 2, 1337, 4, 9600)
+        share = tf.unigr_train_step_flops(u, 2, 1337, 4, 9600, tensor=tensor)
+        lm = 2.0 * tf.qwen_lm_flops(u.qwen.text, 2 * 1337)
+        assert share == pytest.approx(whole - lm + lm / tensor, rel=1e-12)
+
+
 def test_mfu_and_step_timer_equal_jax(monkeypatch):
     peak = jp.peak_flops_per_chip()  # JAX's, on this CPU
     for flops, sec in ((1.5e15, 2.25), (7e12, 0.013), (0.0, 1.0), (1e12, 0.0)):

@@ -226,3 +226,18 @@ def test_eval_clis_need_cuda_unless_cpu_is_asked(cli, monkeypatch, tmp_path):
 
     model, _ = build_model(mod.parse_args(args + ["--device", "cpu"]))
     assert model.device.type == "cpu"
+
+
+def test_legacy_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """The legacy composite (SAM-v1) takes the card by default, as UniGR does:
+    without CUDA it raises unless the CPU is asked for."""
+    from rga3_tpu_torch.models.qwen25vl import tiny_config
+    from rga3_tpu_torch.models.sam1 import tiny_sam1_config
+    from rga3_tpu_torch.models.unigr.legacy import UniGRLegacy, UniGRLegacyConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = UniGRLegacyConfig(qwen=tiny_config(1000), sam1=tiny_sam1_config(64))
+    with pytest.raises(RuntimeError):
+        UniGRLegacy(cfg)
+    model = UniGRLegacy(cfg, device="cpu")
+    assert model.device.type == "cpu" and model.qwen.lm.embed_tokens.weight.device.type == "cpu"

@@ -125,6 +125,19 @@ def test_safetensors_io_against_the_package(tmp_path, dtype):
             np.testing.assert_array_equal(raw[k], v.view(torch.uint16).numpy())
 
 
+def test_safetensors_io_reads_a_cut_file_as_an_error(tmp_path):
+    """The reader fills each tensor straight from the file: a file that ends
+    inside a tensor raises ValueError rather than returning short data."""
+    ours = _tensors(torch.float32, 4)
+    path = tmp_path / "a.safetensors"
+    safetensors_io.save_file(ours, str(path))
+    _assert_bit_equal(safetensors_io.load_file(str(path)), ours)
+    with open(path, "r+b") as f:
+        f.truncate(path.stat().st_size - 3)
+    with pytest.raises(ValueError, match="ends inside"):
+        safetensors_io.load_file(str(path))
+
+
 # ---- Qwen2.5-VL and UniGR Hugging Face directories
 
 

@@ -101,7 +101,8 @@ def test_decode_features_with_language_matches_jax(pair):
 def test_decode_frames_with_language_training_matches_jax(pair, multimask):
     """The training path's decode (`training=True`, the backbone cut): with
     one mask the first one is taken (no stability selection), as in JAX;
-    gradients reach conv_s0 / conv_s1 below the cut and not the trunk."""
+    gradients reach conv_s0 / conv_s1 below the cut and not the trunk.
+    Outside training one mask is chosen by stability, as in JAX."""
     jm, params, tm = pair
     rng = np.random.default_rng(2)
     imgs = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
@@ -120,10 +121,17 @@ def test_decode_frames_with_language_training_matches_jax(pair, multimask):
     assert dec_p.conv_s0.weight.grad is not None and dec_p.conv_s1.weight.grad is not None
     assert all(p.grad is None for p in tm.image_encoder.parameters())
     tm.zero_grad()
-    if not multimask:
-        with pytest.raises(NotImplementedError):  # the stability selection
-            tm.decode_frames_with_language(torch.from_numpy(imgs), torch.from_numpy(lang),
-                                           multimask_output=False)
+    if not multimask:  # the stability selection
+        kw = dict(multimask_output=False)
+        jout = jax.jit(lambda p, x, l: jm.apply(
+            p, x, l, method=lambda m, x_, l_: m.decode_frames_with_language(x_, l_, **kw)))(
+            params, jnp.asarray(imgs), jnp.asarray(lang))
+        with torch.no_grad():
+            tout = tm.decode_frames_with_language(torch.from_numpy(imgs),
+                                                  torch.from_numpy(lang), **kw)
+        for key in ("low_res_masks", "ious", "high_res_masks"):
+            np.testing.assert_allclose(
+                tout[key].numpy(), np.asarray(jout[key]), atol=ATOL, rtol=0)
 
 
 def test_one_state_dict_runs_fused_and_unfused_alike():

@@ -233,3 +233,51 @@ def test_remat_full_gives_the_gradients_of_none(setup):
             assert torch.allclose(grads[remat][name], g, rtol=0, atol=tol), (remat, name)
     with pytest.raises(ValueError):
         UniGR(cfg, device="cpu", remat="everything")
+
+
+def test_unfrozen_backbone_gradients_match_jax(setup):
+    """`freeze_sam_backbone=False` (JAX: `tests/test_unigr.py`'s frozen-backbone
+    test): the image encoder (trunk and neck) takes gradients, JAX's within
+    1e-4 of each tensor's max; every trainable gradient is bit-identical to
+    the frozen step's; the optimizer leaves the encoder as it was and drops
+    its gradients. Frozen, the encoder gets none."""
+    jm, params, cfg, sd, full, _ = setup
+    ucfg = cfg.replace(seg=cfg.seg.replace(freeze_sam_backbone=False))
+    jum = JaxUniGR(jm.cfg.replace(seg=jm.cfg.seg.replace(freeze_sam_backbone=False)))
+    jgrads = jax.jit(jax.grad(lambda p, mb: _jax_loss(jum, p, mb)["loss"]))(params, full)
+    want = torch_state_dict_from_flax(jax.tree.map(np.asarray, jgrads))
+    grads, models = {}, {}
+    for name, c in (("frozen", cfg), ("unfrozen", ucfg)):
+        tm = _port_model(c, sd)
+        _, opt = make_train_state(TrainConfig(**TRAIN), tm)
+        _port_loss(tm, full)["loss"].backward()
+        opt.accumulate()
+        grads[name] = {n: None if p.grad is None else p.grad.clone()
+                       for n, p in tm.named_parameters() if p.requires_grad}
+        models[name] = (tm, opt)
+    trunk = [n for n in grads["unfrozen"] if n.startswith("grounding_encoder.image_encoder.")]
+    assert trunk and not any(n.startswith("grounding_encoder.image_encoder.")
+                             for n in grads["frozen"])
+    def block(n):
+        return int(n.split(".trunk.blocks_")[1].split(".")[0]) if ".trunk.blocks_" in n else None
+
+    reached = set()
+    for n in trunk:
+        g, w = grads["unfrozen"][n], want[n]
+        assert g is not None, n
+        assert (g - w).abs().max().item() <= 1e-4 * max(w.abs().max().item(), 1e-6), n
+        if g.abs().max() > 0:
+            reached.add(block(n))
+    # every Hiera block, and the neck, takes a nonzero gradient
+    assert reached == {block(n) for n in trunk}
+    for n, g in grads["frozen"].items():
+        u = grads["unfrozen"][n]
+        assert (g is None) == (u is None) and (g is None or torch.equal(g, u)), n
+    tm, opt = models["unfrozen"]
+    before = {n: tm.get_parameter(n).detach().clone() for n in trunk}
+    assert set(opt.params) == set(grads["frozen"]) and set(opt.grad_only) == set(trunk)
+    opt.step()
+    opt.zero_grad()
+    for n in trunk:
+        assert torch.equal(tm.get_parameter(n).detach(), before[n]), n
+        assert tm.get_parameter(n).grad is None, n

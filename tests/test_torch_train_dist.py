@@ -169,3 +169,15 @@ def test_tensor_axis_trains_through_the_cli(runs):
     assert tensor[0]["digest"] == tensor[1]["digest"]
     for r in tensor:
         assert [m for _, m in r["val_metric"]] == [v["gIoU"] for v in tensor[0]["val"]]
+
+
+def test_tensor_axis_logs_a_ranks_share_of_the_flops(runs):
+    """Each tensor rank counts its share of the LM (half at tensor 2) and
+    the vision tower and SAM2 whole (they run whole on every rank), on the
+    same batches as one process: between half and all of one process's
+    FLOPs (`test_torch_flops` holds the formula)."""
+    one, tensor = runs["one"][0], runs["tensor2"]
+    assert tensor[0]["flops"] == tensor[1]["flops"]
+    for whole, share in zip(one["flops"], tensor[0]["flops"]):
+        assert whole / 2 < share < whole, (whole, share)
+

@@ -439,6 +439,7 @@ def cli_main(out: str, argv: List[str]) -> None:
     rank = dist.get_rank() if dist.is_initialized() else 0
     record = {
         "steps": [st["aux"] for st in summary["steps"]],
+        "flops": [st["flops"] for st in summary["steps"]],
         "val_metric": summary["val_metric"], "val": [v[1] for v in summary["val"]],
         "rows": summary["rows"], "start_epoch": summary["start_epoch"], "writes": len(writes),
         "digest": str(digest(tensors)), "mesh": summary["mesh"].shape,
