@@ -188,8 +188,10 @@ Phases, each timed on its own line:
      configuration (`configs/release_7b.json`: Qwen2.5-VL-7B with LoRA r 128
      + SAM2 Hiera-L at 1024^2, 8 MLLM / 4 SAM frames, micro-batch 2, grad
      accum 8, the ten-dataset mixture at its rates, remat "dots", f32
-     masters, the SAM2 mask decoder and text_hidden_fcs held and computed
-     in f32 as JAX's f32 parameters make them) on a model it builds itself (`--model_dir dummy`: the JAX
+     masters, SAM2 (the frozen Hiera-L encoder on the f32 kernels of
+     `csrc/f32_ops.cu`), text_hidden_fcs and the LM's embedding and head
+     held and computed in f32 as JAX's f32 parameters make them,
+     `cli.hold_f32`) on a model it builds itself (`--model_dir dummy`: the JAX
      script's crc32-seeded draws, the LM's layers from its scanned paths;
      run 2 copies run 1's draws, the same values), over a synthetic tree in every published
      layout under build/train_cli/ (`write_train_tree` at TRAIN_CLI_SIZES:
@@ -197,11 +199,12 @@ Phases, each timed on its own line:
      and decoded with OpenCV, a ReasonSeg val split of `val_images` images
      at 768x1024, all of them validated), 2 prefetch threads; the only cut
      is the steps (1 an epoch). Run 1: val at start, one step (its
-     launches counted: the flash forward of the LM with segment ids, of the
-     ViT and of Hiera's global blocks, the window attention and the fused
-     Hiera blocks (Hiera-L's counts x the micro-batches), the flash
-     backward once per LM layer and decoder image->token attention per
-     micro-batch), val, a checkpoint. Run 2 (`--epochs 2`): the auto-resume restores the state
+     launches counted: the flash forward of the LM with segment ids and of
+     the ViT; the f32 encoder's kernels at Hiera-L's counts x the
+     micro-batches (HIERA_L_F32_LAUNCHES, the decoder's two image->token
+     attentions on the f32 flash forward) and none of the bf16 Hiera
+     kernels; the flash backward once per LM layer per micro-batch), val,
+     a checkpoint. Run 2 (`--epochs 2`): the auto-resume restores the state
      bit for bit (checksums of every trainable tensor, master and moment),
      the optimizer's count continues, the step's lr is the schedule's at
      step 1 and its accumulation batch index the resume offset; then one
@@ -209,7 +212,9 @@ Phases, each timed on its own line:
      Logged: seconds a step and a micro-batch, host seconds an
      accumulation batch and the step's wait on the loader, val seconds and
      gIoU / cIoU, checkpoint seconds and bytes, peak memory, "dots" against
-     "none" on one micro-batch (peak memory, seconds), the busy share of a
+     "none" on one micro-batch (peak memory, seconds), the unfrozen f32
+     encoder's forward + backward on it (`freeze_sam_backbone` off: its
+     peak memory, or that it does not fit), the busy share of a
      warm step and its model FLOPs and MFU (`utils.flops`,
      `utils.profiling`); then run 2's trained state exported by
      `train.export.export_hf_safetensors` into build/export/ (LoRA merged,
@@ -227,8 +232,8 @@ Phases, each timed on its own line:
      one /api/qa and one /api/segment over localhost, each a path counted
      from its cold call (int4_matmul 197 launches a forward, the Hiera
      wrappers as Hiera-L's blocks say), the answer equal to `UniGRChat.answer`
-     and the RLEs to `segment_video` of the in-process model; both
-     directories deleted;
+     and the RLEs to `segment_video` of the in-process model; the
+     quantized directory deleted (the export stays for 6e);
   6d. tensor: the mesh's tensor axis on the one card: two ranks, processes
      of their own beside this one, in a gloo group (NCCL refuses two ranks
      on one card; gloo carries CUDA tensors' all-reduce, and the port's
@@ -250,12 +255,24 @@ Phases, each timed on its own line:
      backward launched at the ranks' head counts and blocks); rank 0's
      calls join phase 7's. Logged: held bytes, peak memory, prefill and
      decode seconds, step seconds, each process's;
+  6e. verify: `python -m rga3_tpu_torch.tools.verify_checkpoints` in
+     real mode on 6b's export (7B + Hiera-L read in bf16, the dummy word
+     tokenizer: the export has none), `--samples 1 --skip_act_diff` (the
+     card has no transformers; the CPU tests hold act_diff): load, configs
+     1-8 at 7B (int4 serving, speculative decoding, STOM, the int8
+     save / load round trip bit-equal) and config 9, the learned tiny
+     checkpoint in bf16 (its 2x2 Hiera windows on the window kernel's
+     packed small windows), gIoU above 0.5; every stage's ok and seconds
+     logged, any failure fails the run; its path counted; the export
+     deleted;
   7. kernels: each hand-written kernel, and each fused-block wrapper built
      from them, against its plain PyTorch version at every call the paths
      made (shapes, strides, options, segment ids: the flash forward at
      each distinct segment ids its recorded launches had, so the tracker's
      cross-attention at every bank it saw; bf16 inputs; per
-     output row within ROW_TOL of the row's max|plain|; the flash backward
+     output row within ROW_TOL of the row's max|plain|; the f32 variants
+     in f32 within F32_TOL, TF32 off, against cuBLAS f32 and SDPA's math
+     path as the library and the f32 peak in the bound; the flash backward
      against `flash_attention_bwd_reference`, dq, dk and dv per row), with
      its time, its bound, the plain version's time and the time of the same
      function composed of PyTorch library calls
@@ -298,12 +315,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel differs by about one bf16 ulp of the row's largest value (2^-7 of
 # it); a kernel that skipped a quarter of the keys would be off by ~1x.
 ROW_TOL = 2e-2
+# the f32 variants (csrc/f32_ops.cu, the encoder under f32 parameters), per
+# output row against the f32 plain version with TF32 off (phase 1): f32
+# outputs with f32 accumulation on both sides differ by a few f32 ulps
+# (~1e-7) of the row's largest value; set before the first call
+F32_TOL = 1e-4
 # phase 2's second card: the largest difference against the plain version's
 # largest value (bf16 outputs; the backward's f32 reference)
 SECOND_CARD_TOL = 2e-2
 REPS = 10  # timed launches per kernel shape, after one warm-up
 ENCODE_PAIRS = 6  # fused/unfused SAM encodes timed in turns
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 on the CUDA cores, no tensor cores (data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 L2_ROTATE_BYTES = 100e6  # twice the H100's 50 MB L2: weights timed from device memory
 CHAT_TOKENS = 64  # max_new_tokens of the chat phase
@@ -417,6 +440,9 @@ LOSS_TOL = 1e-2
 TRAIN_CLI_SIZES = dict(image=(480, 640), video=(720, 1280), frames=12, mp4=(480, 854),
                        mp4_frames=240, mp4_fps=30, items=3, val=(768, 1024), val_images=4)
 TRAIN_CLI_MODEL = "7b"
+# phase 6b's warm step when the encoder computed in bf16 (PERF.md §5, NVIDIA H100
+# 80GB HBM3, 700 W), printed beside the f32 encoder's
+BF16_ENCODER_WARM_STEP = 5.833
 # phase 6d: the tensor axis on the one card, two ranks (processes) over gloo
 # beside this process. The LM's depth is cut to TP_LAYERS (28 at 7B) so that
 # three 7B-width models fit; the full depth runs on four cards
@@ -474,8 +500,8 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -484,11 +510,12 @@ def bound(flops: float, nbytes: float):
 # --------------------------------------------------------------------------
 
 
-def randn_strided(shape, stride, gen):
-    """bf16 N(0, 1) values in a tensor with the given shape and strides."""
+def randn_strided(shape, stride, gen, dtype=None):
+    """N(0, 1) values (bf16 unless `dtype`) in a tensor with the given shape
+    and strides."""
     import torch
 
-    t = torch.empty_strided(shape, stride, device="cuda", dtype=torch.bfloat16)
+    t = torch.empty_strided(shape, stride, device="cuda", dtype=dtype or torch.bfloat16)
     return t.normal_(generator=gen)
 
 
@@ -704,7 +731,8 @@ def check_flash_bwd(key, segs, gen, reps):
 
 
 def lib_window(q, k, v, window, q_window, scale):
-    """Window attention as one SDPA call over the windows."""
+    """Window attention as one SDPA call over the windows (SDPA's math path
+    at f32: its other kernels round f32 operands)."""
     import torch.nn.functional as F
 
     b, lk, h, d = k.shape
@@ -713,9 +741,20 @@ def lib_window(q, k, v, window, q_window, scale):
     def win(t, n):
         return t.reshape(b * nw, n, h, d).transpose(1, 2)
 
-    out = F.scaled_dot_product_attention(
-        win(q, q_window), win(k, window), win(v, window), scale=scale)
+    with math_sdpa(q):
+        out = F.scaled_dot_product_attention(
+            win(q, q_window), win(k, window), win(v, window), scale=scale)
     return out.transpose(1, 2).reshape(b, nw * q_window, h, d)
+
+
+def math_sdpa(x):
+    """SDPA limited to its math path for an f32 `x`, else no limit."""
+    import contextlib
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    return sdpa_kernel(SDPBackend.MATH) if x.dtype == torch.float32 else contextlib.nullcontext()
 
 
 def check_window(key, _extra, gen, reps):
@@ -823,8 +862,9 @@ def lib_transition(x, p, heads, ws, eps, scale, tanh):
     return lib_mlp(shortcut + F.linear(attn, p["wattn"], p["battn"]), p, eps, tanh)
 
 
-def measure(desc, run, plain, lib, flops, nbytes, reps):
-    """Check `run()` against `plain()` per output row, then time all three."""
+def measure(desc, run, plain, lib, flops, nbytes, reps, tol=ROW_TOL, peak=PEAK_BF16_FLOPS):
+    """Check `run()` against `plain()` per output row (within `tol` of the
+    row's max|plain|), then time all three."""
     import torch
 
     outs, refs = run(), plain()
@@ -838,12 +878,12 @@ def measure(desc, run, plain, lib, flops, nbytes, reps):
         r, e = row_rel_err(out, ref, torch.ones(out.shape[:-1], dtype=torch.bool,
                                                 device="cuda"))
         rel, err = max(rel, r), max(err, e)
-    if rel > ROW_TOL:
-        raise AssertionError(f"{desc}: row error {rel} > {ROW_TOL} of max|ref|")
+    if rel > tol:
+        raise AssertionError(f"{desc}: row error {rel} > {tol} of max|ref|")
     return dict(desc=desc, err=err, rel=rel, ms=time_ms(run, reps),
                 plain_ms=time_ms(plain, max(2, reps // 4)),
                 lib_ms=None if lib is None else time_ms(lib, reps),
-                bound=bound(flops, nbytes))
+                bound=bound(flops, nbytes, peak), tol=tol)
 
 
 def check_gemm(key, _extra, gen, reps):
@@ -1025,6 +1065,115 @@ def check_transition(key, _extra, gen, reps):
                    flops, nbytes, reps)
 
 
+# ---- the f32 variants (csrc/f32_ops.cu): each at its recorded calls
+# against its f32 plain version, TF32 off since phase 1, within F32_TOL; the
+# library time is cuBLAS f32 / SDPA's math path, the bound at the f32 peak
+
+
+def rand32(shape, gen, scale=1.0):
+    import torch
+
+    return torch.randn(shape, device="cuda", generator=gen) * scale
+
+
+def check_gemm_f32(key, _extra, gen, reps):
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    m, n, k, epi = key
+    a = rand32((m, k), gen)
+    w, bias = rand32((n, k), gen, k ** -0.5), rand32((n,), gen, 0.1)
+    res = rand32((m, n), gen) if epi.startswith("res") else None
+    kw = dict(epilogue=epi, residual=res)
+
+    def lib():
+        h = F.linear(a, w, bias)
+        if epi.startswith("gelu"):
+            return F.gelu(h, approximate="tanh" if epi == "gelu_tanh" else "none")
+        return h if res is None else res + h
+
+    nbytes = 4.0 * (m * k + n * k + m * n * (2 if res is not None else 1))
+    r = measure(f"f32 M={m} N={n} K={k} epilogue={epi}", lambda: fb.gemm_f32(a, w, bias, **kw),
+                lambda: fb.gemm_reference(a, w, bias, **kw), lib, 2.0 * m * n * k, nbytes, reps,
+                tol=F32_TOL, peak=PEAK_F32_FLOPS)
+    r["flops"] = 2.0 * m * n * k
+    return r
+
+
+def check_layer_norm_f32(key, _extra, gen, reps):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rows, d, eps = key
+    x = rand32((rows, d), gen)
+    g, b = 1 + rand32((d,), gen, 0.1), rand32((d,), gen, 0.1)
+    return measure(f"f32 rows={rows} D={d}", lambda: fb.layer_norm_f32(x, g, b, eps),
+                   lambda: fb.layer_norm_reference(x, g, b, eps),
+                   lambda: lib_ln(x, g, b, eps), 8.0 * rows * d, 8.0 * rows * d, reps,
+                   tol=F32_TOL, peak=PEAK_F32_FLOPS)
+
+
+def check_pool_f32(key, _extra, gen, reps):
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    shape, stride, ws = key
+    b, l, c = shape
+    x = rand32((b, l, stride[1]), gen)[:, :, :c]
+    return measure(f"f32 B={b} L={l} C={c} row stride={stride[1]} ws={ws}",
+                   lambda: fb.window_pool2x2_f32(x, ws),
+                   lambda: fb.window_pool2x2_reference(x, ws),
+                   lambda: lib_pool(x, ws), 3.0 * b * l * c / 4, 4.0 * b * l * c * 5 / 4, reps,
+                   tol=F32_TOL, peak=PEAK_F32_FLOPS)
+
+
+def check_window_f32(key, _extra, gen, reps):
+    import torch
+    from rga3_tpu_torch.ops.attention import window_attention_f32, window_reference
+
+    shape, qstride, kstride, vstride, w, scale, kshape, qw = key
+    b, l, h, d = shape
+    q = randn_strided(shape, qstride, gen, torch.float32)
+    k = randn_strided(kshape, kstride, gen, torch.float32)
+    v = randn_strided(kshape, vstride, gen, torch.float32)
+    flops = 4.0 * b * h * l * w * d
+    nbytes = 4.0 * (2 * b * l * h * d + 2 * b * kshape[1] * h * d)
+    r = measure(f"f32 B={b} Lq={l} Lk={kshape[1]} H={h} D={d} window={w} q_window={qw}",
+                lambda: window_attention_f32(q, k, v, w, q_window=qw, scale=scale),
+                lambda: window_reference(q, k, v, w, scale, q_window=qw),
+                lambda: lib_window(q, k, v, w, qw, scale), flops, nbytes, reps,
+                tol=F32_TOL, peak=PEAK_F32_FLOPS)
+    r["flops"] = flops
+    return r
+
+
+def check_flash_f32(key, _extra, gen, reps):
+    import torch
+    import torch.nn.functional as F
+    from rga3_tpu_torch.ops.attention import flash_attention_f32
+
+    qshape, qstride, kshape, kstride, vstride, causal, scale = key
+    b, lq, h, d = qshape
+    lk = kshape[1]
+    q = randn_strided(qshape, qstride, gen, torch.float32)
+    k = randn_strided(kshape, kstride, gen, torch.float32)
+    v = randn_strided(kshape, vstride, gen, torch.float32)
+    kw = dict(causal=False, segment_ids=None, kv_segment_ids=None, scale=scale)
+
+    def lib():
+        with math_sdpa(q):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale
+            ).transpose(1, 2)
+
+    flops = 4.0 * b * h * lq * lk * d
+    nbytes = 4.0 * (2 * b * lq * h * d + 2 * b * lk * h * d)
+    r = measure(f"f32 B={b} Lq={lq} Lk={lk} H={h} D={d}",
+                lambda: flash_attention_f32(q, k, v, scale=scale),
+                lambda: plain_flash(q, k, v, kw), lib, flops, nbytes, reps,
+                tol=F32_TOL, peak=PEAK_F32_FLOPS)
+    r["flops"] = flops
+    return r
+
+
 def time_graph(make_fn, copies, reps):
     """Device ms per call of `make_fn(copy)`, cycling over `copies` (so that
     each call reads operands the previous calls pushed out of the L2
@@ -1110,9 +1259,20 @@ KERNELS = (
      f"{FUSED}:917"),
     ("int4_matmul", check_int4, "rga3_tpu_torch/csrc/int4_matmul.cu",
      "rga3_tpu/ops/quant.py:159"),
+    # the f32 variants: the encoder and the SAM2 decoder's attention under
+    # f32 parameters (phase 6b's train entry point)
+    ("gemm_f32", check_gemm_f32, "rga3_tpu_torch/csrc/f32_ops.cu", f"{FUSED}:312"),
+    ("layer_norm_f32", check_layer_norm_f32, "rga3_tpu_torch/csrc/f32_ops.cu", f"{FUSED}:543"),
+    ("window_pool2x2_f32", check_pool_f32, "rga3_tpu_torch/csrc/f32_ops.cu", f"{FUSED}:907"),
+    ("window_attention_f32", check_window_f32, "rga3_tpu_torch/csrc/f32_ops.cu",
+     "rga3_tpu/ops/attention.py:228"),
+    ("flash_attention_f32", check_flash_f32, "rga3_tpu_torch/csrc/f32_ops.cu",
+     "rga3_tpu/ops/attention.py:75"),
 )
+F32_KERNELS = ("gemm_f32", "layer_norm_f32", "window_pool2x2_f32", "window_attention_f32",
+               "flash_attention_f32")
 SEGMENT_KERNELS = tuple(name for name, *_ in KERNELS
-                        if name not in ("int4_matmul", "flash_attention_bwd"))
+                        if name not in ("int4_matmul", "flash_attention_bwd") + F32_KERNELS)
 # the training path runs every kernel of segmentation and the backward
 TRAIN_KERNELS = SEGMENT_KERNELS + ("flash_attention_bwd",)
 # launches of the fused block wrappers in one 8-frame call: Hiera-L's
@@ -1126,6 +1286,12 @@ HIERA_L_LAUNCHES = {"fused_window_block": 39, "fused_global_block": 3,
                     "fused_window_block_split": 3, "fused_transition_block": 3,
                     "ln_qkv": 6, "proj_mlp": 3, "proj_ln": 3, "mlp_blocked": 3,
                     "gemm": 4 * 45 + 5 * 3, "layer_norm": 2 * 48, "window_pool2x2": 2 * 3}
+# the same blocks in f32 (under f32 parameters), counted by the f32 kernels:
+# a window attention in each windowed and transition block, a flash forward
+# in each global block
+HIERA_L_F32_LAUNCHES = {"gemm_f32": 4 * 45 + 5 * 3, "layer_norm_f32": 2 * 48,
+                        "window_pool2x2_f32": 2 * 3, "window_attention_f32": 39 + 3 + 3,
+                        "flash_attention_f32": 3}
 
 
 # --------------------------------------------------------------------------
@@ -3806,7 +3972,10 @@ def _train_cli_runs(seed: int, card_line: str, read_path):
         d = key[0][-1]
         seg = segs is not None and any(x is not None for x in segs)
         by_d[(d, seg)] = by_d.get((d, seg), 0) + n
-    per_mb = cfg.qwen.text.num_hidden_layers + cfg.sam2.twoway_depth
+    # under f32 parameters SAM2 computes in f32 (`cli.hold_f32`): its decoder's
+    # attention takes the f32 flash forward and recomputes its plain version
+    # for the backward, so the bf16 backward runs the LM's layers only
+    per_mb = cfg.qwen.text.num_hidden_layers
     log(f"train cli: launches of the cold step {({k: n for k, n in launches.items() if n})}; "
         f"flash forward by (head dim, segment ids): {by_d}; flash_attention_bwd "
         f"{launches['flash_attention_bwd']} (expected {accum} micro-batches x {per_mb})")
@@ -3815,11 +3984,18 @@ def _train_cli_runs(seed: int, card_line: str, read_path):
     if not by_d.get((lm_d, True)) or not by_d.get((vit_d, True)):
         raise AssertionError(f"train cli: the LM (D={lm_d}) or the ViT (D={vit_d}) flash "
                              f"forward with segment ids was not launched: {by_d}")
-    if launches["window_attention"] <= 0:
-        raise AssertionError("train cli: window_attention was not launched")
-    for k, n in HIERA_L_LAUNCHES.items():
+    # the f32 encoder (Hiera-L and the decoder's image attention) on the f32
+    # kernels, none of Hiera's bf16 launches, per micro-batch
+    f32_want = dict(HIERA_L_F32_LAUNCHES)
+    f32_want["flash_attention_f32"] += cfg.sam2.twoway_depth
+    log("train cli: the f32 encoder's launches a cold step, per kernel: " + ", ".join(
+        f"{k} {launches[k]} ({f32_want[k]} x {accum} expected)" for k in F32_KERNELS)
+        + f"; the bf16 Hiera kernels' {({k: launches[k] for k in HIERA_L_LAUNCHES})}")
+    for k, n in f32_want.items():
         if launches[k] != n * accum:
             raise AssertionError(f"train cli: {k}: {launches[k]} launches, expected {n} x {accum}")
+    if any(launches[k] for k in HIERA_L_LAUNCHES) or launches["window_attention"]:
+        raise AssertionError("train cli: the f32 encoder launched bf16 Hiera kernels")
     if launches["flash_attention_bwd"] != accum * per_mb:
         raise AssertionError(f"train cli: {launches['flash_attention_bwd']} flash backward "
                              f"launches, expected {accum * per_mb}")
@@ -3889,9 +4065,11 @@ def _train_cli_runs(seed: int, card_line: str, read_path):
                        time.perf_counter() - t0, resident / 2**30)
     lm.remat = "dots"
     state.opt.zero_grad()
+    peaks["unfrozen f32"] = unfrozen_f32_peak(state, mbs[0])
     log("train cli: one micro-batch (input_ids "
         f"{tuple(mbs[0]['input_ids'].shape)}), forward + backward: " + "; ".join(
             f"remat {m}: peak {p:.2f} GiB above the resident {r:.2f} GiB, {sec:.3f} s"
+            if p is not None else f"remat {m}: {sec}"
             for m, (p, sec, r) in peaks.items()) + f"; {card_line}")
     # where a warm step's device time goes: the CLI's own step (its loss
     # normalisers and aux all-reduced, the gradients synced over the ranks),
@@ -3912,7 +4090,9 @@ def _train_cli_runs(seed: int, card_line: str, read_path):
         f"(the aux and gradient reductions); {card_line}")
     flops = cli.step_flops(cfg, mbs)
     log(f"train cli: warm step {flops / 1e12:.3f} TFLOP of model FLOPs "
-        f"(unigr_train_step_flops over its {accum} micro-batches) in {warm:.3f} s: "
+        f"(unigr_train_step_flops over its {accum} micro-batches) in {warm:.3f} s (with the "
+        f"encoder in bf16, before f32 parameters held it in f32: {BF16_ENCODER_WARM_STEP} s, "
+        f"PERF.md §5): "
         f"{flops / warm / 1e12:.1f} TFLOP/s, MFU {mfu(flops, warm):.4f} of the "
         f"{peak_flops_per_chip() / 1e12:.0f} TFLOP/s bf16 peak; {card_line}")
     # the checkpoints were read back above: their disk goes to the export
@@ -3925,16 +4105,70 @@ def _train_cli_runs(seed: int, card_line: str, read_path):
     return {"train_cli": cold["path"]}, exported
 
 
+def unfrozen_f32_peak(state, mb):
+    """One micro-batch forward + backward of phase 6b's model with
+    `freeze_sam_backbone` off: under f32 parameters the Hiera-L encoder
+    takes gradients through its f32 plain versions, recomputed block by
+    block. Returns (GiB above the resident, seconds, resident GiB), or
+    (None, the out-of-memory message, resident GiB) when it does not fit
+    on the card (logged, not raised: the encoder stays f32)."""
+    import gc
+
+    import torch
+
+    model = state.model
+    encoder = model.grounding_encoder.image_encoder
+    frozen_cfg = model.cfg
+    model.cfg = frozen_cfg.replace(seg=frozen_cfg.seg.replace(freeze_sam_backbone=False))
+    try:
+        for p in encoder.parameters():
+            p.requires_grad_(True)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            model.train_forward(**mb)["loss"].backward()
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            msg = f"out of memory on the card: {str(e).splitlines()[0]}"
+            log(f"train cli: the unfrozen f32 encoder's micro-batch does not fit: {msg}")
+            return None, msg, resident / 2**30
+        sec = time.perf_counter() - t0
+        grads = [p.grad for p in encoder.parameters()]
+        if any(g is None or not torch.isfinite(g).all() for g in grads):
+            raise AssertionError("train cli: the unfrozen f32 encoder has no finite gradient")
+        if next(encoder.parameters()).dtype != torch.float32:
+            raise AssertionError("train cli: the encoder is not f32")
+        return ((torch.cuda.max_memory_allocated() - resident) / 2**30, sec, resident / 2**30)
+    finally:
+        model.cfg = frozen_cfg
+        for p in encoder.parameters():
+            p.requires_grad_(False)
+            p.grad = None
+        state.opt.zero_grad()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def kernel_wrappers() -> dict:
     """{name: wrapper} of every kernel wrapper whose launches and calls the
     paths record."""
     from rga3_tpu_torch.ops import fused_block as fb
-    from rga3_tpu_torch.ops.attention import flash_attention, flash_attention_bwd, window_attention
+    from rga3_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_f32, window_attention,
+        window_attention_f32,
+    )
     from rga3_tpu_torch.ops.quant import int4_matmul
 
     wrappers = {"flash_attention": flash_attention, "window_attention": window_attention,
-                "int4_matmul": int4_matmul, "flash_attention_bwd": flash_attention_bwd}
+                "int4_matmul": int4_matmul, "flash_attention_bwd": flash_attention_bwd,
+                "window_attention_f32": window_attention_f32,
+                "flash_attention_f32": flash_attention_f32}
     wrappers.update((name, getattr(fb, name)) for name in SEGMENT_KERNELS[2:])
+    wrappers.update((name, getattr(fb, name)) for name in F32_KERNELS[:3])
     return wrappers
 
 
@@ -4552,8 +4786,7 @@ def handoff_phase(frames, card_line: str, read_path, exported: dict) -> dict:
         f"{len(differ)} differ")
     if differ or set(sd) != set(want):
         raise AssertionError(f"handoff: the served model differs: {differ[:5]}")
-    del sd, want
-    shutil.rmtree(src)
+    del sd, want  # the export stays for phase 6e, which deletes it
 
     upload = {"video": ("frames.npy", npy_bytes(np.stack(frames)))}
     qa_frames = sample_frames(frames, service.max_qa_frames)[0]
@@ -4624,6 +4857,113 @@ def handoff_phase(frames, card_line: str, read_path, exported: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+
+
+def verify_phase(card_line: str, read_path) -> dict:
+    """Phase 6e: `python -m rga3_tpu_torch.tools.verify_checkpoints` in
+    real mode on phase 6b's export (build/export: Qwen2.5-VL-7B + Hiera-L,
+    f32 on disk, read in bf16), `--samples 1 --skip_act_diff` (the card has
+    no transformers: act_diff is held on the CPU by the tests). Every stage
+    must pass, config 9 (the learned tiny checkpoint, whose 2x2 Hiera
+    windows take the window kernel's packed small windows) with its gIoU
+    above 0.5. The counts are reset before the run and read after it; the
+    export is deleted at the end. Returns the run's path."""
+    import gc
+
+    import torch
+    from rga3_tpu_torch.ops.attention import reset_launches
+    from rga3_tpu_torch.tools import verify_checkpoints as vc
+
+    src = os.path.join(HERE, "build", "export")
+    out = os.path.join(HERE, "build", "verify_checkpoints.json")
+    log("verify: act_diff skipped (--skip_act_diff): the card has no transformers; the CPU "
+        "tests hold it (tests/test_torch_verify_checkpoints.py)")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = vc.main(["--unigr_dir", src, "--samples", "1", "--skip_act_diff", "--out", out,
+                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = read_path()
+    finally:
+        shutil.rmtree(src, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(out) as f:
+        report = json.load(f)
+    stages = {"load": report["load"], **report["configs"]}
+    for name, r in stages.items():
+        extra = {k: v for k, v in r.items() if k not in ("ok", "seconds", "trace")}
+        log(f"verify {name}: ok {r['ok']}, {r['seconds']} s; {extra}")
+    learned = report["configs"].get("config9_learned", {})
+    launched = path[0]
+    small = sorted({key[4] for key in path[1]["window_attention"] if key[4] < 16})
+    log(f"verify: verify_checkpoints {wall:.2f} s, exit code {rc}, all_ok {report['all_ok']}; "
+        f"config 9 (learned tiny, {learned.get('dtype')}) gIoU {learned.get('gIoU')} cIoU "
+        f"{learned.get('cIoU')} over {learned.get('n')} images; window attention at windows "
+        f"under 16 tokens {small}; launches {({k: n for k, n in launched.items() if n})}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{card_line}")
+    if rc != 0 or not report["all_ok"] or not all(r["ok"] for r in stages.values()):
+        raise AssertionError(f"verify: a stage failed: "
+                             f"{[n for n, r in stages.items() if not r['ok']]}")
+    if report["load"].get("size") != TRAIN_CLI_MODEL or "skipped" in learned:
+        raise AssertionError(f"verify: not the {TRAIN_CLI_MODEL} export, or config 9 skipped")
+    missing = [k for k in SEGMENT_KERNELS + ("int4_matmul",) if launched[k] <= 0]
+    if missing or not small:
+        raise AssertionError(f"verify: {missing} not launched, or no window under 16 tokens")
+    return {"verify_checkpoints": path}
+
+
+def kernels_phase(paths: dict, seed: int) -> list:
+    """Phase 7: each kernel against its plain version at every call the
+    `paths` made (shapes, strides, masks and segment ids as recorded); a
+    call's times count once for each launch of it in each path's run.
+    Returns the kernels' JSON rows."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    kernels = []
+    for kname, check, src, replaces in KERNELS:
+        tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
+        merged, per_path = {}, {}
+        for pname, (_, pcalls) in paths.items():
+            for key, (n, extra) in pcalls[kname].items():
+                merged.setdefault(key, [0, extra, {}])
+                merged[key][0] += n
+                merged[key][2][pname] = n
+        for key, (n, extra, by_path) in merged.items():
+            r = check(key, extra, gen, REPS)
+            log(f"kernel {kname} [{r['desc']}]: launches/call {n}, "
+                f"max_abs_err {r['err']:.3e}, row err / max|ref| {r['rel']:.3e} "
+                f"(tol {r.get('tol', ROW_TOL)}), ms {r['ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
+                f"({r['bound'][1]}), share of bound {r['bound'][0] / r['ms']:.3f}, "
+                f"plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
+                + (f", TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} (library "
+                   f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else ""))
+            for pname, pn in by_path.items():
+                per_path[pname] = per_path.get(pname, 0.0) + pn * r["ms"]
+            tot["ms"] += n * r["ms"]
+            tot["plain_ms"] += n * r["plain_ms"]
+            tot["lib_ms"] = (None if tot["lib_ms"] is None or r["lib_ms"] is None
+                             else tot["lib_ms"] + n * r["lib_ms"])
+            tot["bound_ms"] += n * r["bound"][0]
+            if r["bound"][1] == "operations":
+                tot["ops_ms"] += n * r["bound"][0]
+            tot["err"] = max(tot["err"], r["err"])
+        total = sum(pl[kname] for pl, _ in paths.values())
+        log(f"kernel {kname}: {total} launches, ms by path: "
+            + ", ".join(f"{p} {paths[p][0][kname]}x {v:.4f}" for p, v in per_path.items()))
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": total, "max_abs_err": tot["err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations" if tot["ops_ms"] * 2 >= tot["bound_ms"] else "bytes",
+            "library_ms": tot["lib_ms"],
+        })
+    return kernels
 
 
 def hash_seed_env(seed: int, environ) -> dict | None:
@@ -4927,49 +5267,16 @@ def main() -> int:
     paths.update(tensor_phase(seed, frames))
     log(f"phase tensor: {time.perf_counter() - t0:.2f} s")
 
-    # ---- 7. each kernel against its plain version, at every call the paths
-    # made (shapes, strides, masks and segment ids as recorded); a call's
-    # times count once for each launch of it in each path's run
+    # ---- 6e. checkpoint verification in real mode on 6b's export (7B +
+    # Hiera-L), configs 1-9 on the card
     t0 = time.perf_counter()
-    gen = torch.Generator("cuda").manual_seed(seed)
-    kernels = []
-    for kname, check, src, replaces in KERNELS:
-        tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
-        merged, per_path = {}, {}
-        for pname, (_, pcalls) in paths.items():
-            for key, (n, extra) in pcalls[kname].items():
-                merged.setdefault(key, [0, extra, {}])
-                merged[key][0] += n
-                merged[key][2][pname] = n
-        for key, (n, extra, by_path) in merged.items():
-            r = check(key, extra, gen, REPS)
-            log(f"kernel {kname} [{r['desc']}]: launches/call {n}, "
-                f"max_abs_err {r['err']:.3e}, row err / max|ref| {r['rel']:.3e} "
-                f"(tol {ROW_TOL}), ms {r['ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
-                f"({r['bound'][1]}), share of bound {r['bound'][0] / r['ms']:.3f}, "
-                f"plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
-                + (f", TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} (library "
-                   f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else ""))
-            for pname, pn in by_path.items():
-                per_path[pname] = per_path.get(pname, 0.0) + pn * r["ms"]
-            tot["ms"] += n * r["ms"]
-            tot["plain_ms"] += n * r["plain_ms"]
-            tot["lib_ms"] = (None if tot["lib_ms"] is None or r["lib_ms"] is None
-                             else tot["lib_ms"] + n * r["lib_ms"])
-            tot["bound_ms"] += n * r["bound"][0]
-            if r["bound"][1] == "operations":
-                tot["ops_ms"] += n * r["bound"][0]
-            tot["err"] = max(tot["err"], r["err"])
-        total = sum(pl[kname] for pl, _ in paths.values())
-        log(f"kernel {kname}: {total} launches, ms by path: "
-            + ", ".join(f"{p} {paths[p][0][kname]}x {v:.4f}" for p, v in per_path.items()))
-        kernels.append({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": total, "max_abs_err": tot["err"], "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": "operations" if tot["ops_ms"] * 2 >= tot["bound_ms"] else "bytes",
-            "library_ms": tot["lib_ms"],
-        })
+    paths.update(verify_phase(card_line, read_path))
+    log(f"phase verify: {time.perf_counter() - t0:.2f} s")
+
+    # ---- 7. each kernel against its plain version, at every call the paths
+    # made
+    t0 = time.perf_counter()
+    kernels = kernels_phase(paths, seed)
     torch.cuda.empty_cache()
     log(f"phase kernels: {time.perf_counter() - t0:.2f} s")
 

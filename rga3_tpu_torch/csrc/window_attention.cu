@@ -29,6 +29,13 @@
 // the pooled q_window = 4 with kv window 16, where a warp covers 4 query
 // windows over 64 keys, masked block-diagonally); every other case, (16,
 // 16), (64, 64), (64, 16), (256, 256) and (256, 64), is mask-free.
+//
+// Windows under 16 tokens (1, 2, 4 or 8: a small Hiera's 2x2 windows, and
+// the pooled 1- and 2-token query windows of its transitions) pack 16 / w
+// windows into a warp's 16-row MMA tile and mask them block-diagonally, as
+// the Pallas kernel packs every window dividing its query block into one
+// block (`_local_flash_kernel`, rga3_tpu/ops/attention.py:242-244); a warp's
+// run of keys may then end inside a 16-key chunk, whose tail is masked.
 #include "attention_mma.cuh"
 #include "device.cuh"  // use_device, PerDevice
 
@@ -61,7 +68,9 @@ __global__ void __launch_bounds__(kBlockThreads, min_blocks<D>()) window_fwd_mma
   // the block's keys: the key windows of its query windows
   const int first = q0 / qw * w;
   const int end = ((min(q0 + kRows, p.len_q) - 1) / qw + 1) * w;
-  // this warp's rows and their keys (multiples of 16: windows are)
+  // this warp's rows and their keys (from a multiple of 16: windows of 16
+  // or more tokens are multiples of 16, and windows under 16 tokens divide
+  // 16, so the warp's first row, a multiple of 16, starts a window)
   const int wq0 = q0 + 16 * warp;
   const int n_rows = min(16, p.len_q - wq0);
   const int wfirst = wq0 / qw * w;
@@ -94,7 +103,9 @@ __global__ void __launch_bounds__(kBlockThreads, min_blocks<D>()) window_fwd_mma
     if (k0 + kKeys < end) load_tile(k0 + kKeys, stage ^ 1);
     cp_async_commit();
     const int c_lo = max(wfirst - k0, 0) / 16;
-    const int c_hi = min(max(wend - k0, 0), kKeys) / 16;
+    // a run of windows under 16 tokens may end inside a chunk: round up
+    // (the keys past `end` are zeros, and masked)
+    const int c_hi = (min(max(wend - k0, 0), kKeys) + 15) / 16;
     const bf16* ks = ring + 2 * stage * kKeys * S;
     auto keep = [&](int r, int j) {
       const int start = (wq0 + g + 8 * r) / qw * w;  // the row's key window
@@ -130,9 +141,10 @@ cudaError_t launch(const WindowParams& p, int batch, int heads, cudaStream_t str
 // Strides are in elements; q, k and v must
 // have 16-byte aligned rows (data pointers 16-byte aligned, strides
 // multiples of 8), which the wrapper checks. `len` keys in windows of
-// `window`, a multiple of 16 that divides `len`; queries in windows of
-// `q_window` (== window, or window / 4 for pooled queries), which must
-// divide 64 or be a multiple of 64. Returns a cudaError_t (0 on success).
+// `window`, a multiple of 16 or a divisor of 16 (1, 2, 4, 8), that divides
+// `len`; queries in windows of `q_window` (== window, or window / 4 for
+// pooled queries), which must divide 64 or be a multiple of 64. Returns a
+// cudaError_t (0 on success).
 extern "C" int rga3_window_attention_bf16(
     int device, const void* q, const void* k, const void* v, void* o, int batch, int len,
     int heads, int head_dim, int window, int q_window, int64_t q_sb, int64_t q_sl,
@@ -142,7 +154,8 @@ extern "C" int rga3_window_attention_bf16(
   using namespace rga3;
   if (const cudaError_t err = use_device(device); err != cudaSuccess) return err;
   using namespace rga3::mma_attn;
-  if (window <= 0 || window % 16 != 0 || len % window != 0 || q_window <= 0 ||
+  if (window <= 0 || (window < 16 ? 16 % window : window % 16) != 0 || len % window != 0 ||
+      q_window <= 0 ||
       (q_window != window && 4 * q_window != window) ||
       (q_window < kRows ? kRows % q_window : q_window % kRows) != 0)
     return cudaErrorInvalidValue;

@@ -28,6 +28,7 @@ import torch.utils.checkpoint
 
 from ...ops import rope as rope_ops
 from ...ops.attention import flash_attention, mha_reference
+from ...ops.precision import exact_f32
 from ...ops.quant import (
     INT4_DECODE_ROWS, int4_group, int4_matmul, int8_matmul, int8_w8a8_matmul, quantize_int4,
     quantize_int8,
@@ -469,6 +470,12 @@ class QwenForCausalLM(nn.Module):
                                              w8a8=False, **factory), ("embed", "vocab"))
 
     @property
+    def compute_dtype(self) -> torch.dtype:
+        """The decoder's dtype (the head, or the tied embedding, may be held
+        in f32 under f32 parameters)."""
+        return self.model.norm.weight.dtype
+
+    @property
     def kv_heads(self) -> int:
         """The KV heads a rank computes (its KV cache's)."""
         return self.model.layers_0.self_attn.heads()[1]
@@ -480,13 +487,25 @@ class QwenForCausalLM(nn.Module):
         return self.embed_tokens(input_ids)
 
     def head(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The logits (this rank's vocabulary columns under the tensor axis)."""
+        """The logits (this rank's vocabulary columns under the tensor axis),
+        in the head's dtype: under f32 parameters the train entry point
+        holds `lm_head` (or the tied embedding) in f32, as the JAX package's
+        f32 parameter promotes its bf16 input, and the product then runs in
+        f32 with TF32 off around it (`ops.precision.exact_f32`), as JAX
+        computes it."""
         if self.tp is not None:
             hidden = copy_to_tensor(hidden, self.tp.group)
         if self.cfg.tie_word_embeddings:
             with fsdp.gathered(self.embed_tokens):
-                return hidden @ self.embed_tokens.weight.t()
-        return self.lm_head(hidden)
+                w = self.embed_tokens.weight
+                hidden = hidden.to(w.dtype)
+                with exact_f32(hidden):
+                    return hidden @ w.t()
+        w = getattr(self.lm_head, "weight", None)
+        if w is not None and w.is_floating_point():
+            hidden = hidden.to(w.dtype)
+        with exact_f32(hidden):
+            return self.lm_head(hidden)
 
     def forward(self, input_ids=None, inputs_embeds=None, position_ids=None,
                 segment_ids=None, cache: Optional[Dict[str, Any]] = None,
@@ -497,7 +516,7 @@ class QwenForCausalLM(nn.Module):
         only the hidden states, such as the [SEG] gather)."""
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
-        inputs_embeds = inputs_embeds.to(self.embed_tokens.weight.dtype)
+        inputs_embeds = inputs_embeds.to(self.compute_dtype)
         b, l = inputs_embeds.shape[:2]
         if position_ids is None:
             base = torch.arange(l, device=inputs_embeds.device)[None].expand(b, l)

@@ -45,7 +45,7 @@ class Qwen25VL(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.lm.embed_tokens.weight.dtype
+        return self.lm.compute_dtype
 
     def init_weights(self, generator: torch.Generator, std: float = 0.02) -> None:
         """Random weights from `generator` (`models.init.random_init_`)."""

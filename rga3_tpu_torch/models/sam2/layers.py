@@ -16,12 +16,10 @@ from ...ops.attention import flash_attention, mha_reference
 
 def attend(q, k, v, *, plain: bool = False, min_flash_len: int = 1024):
     """(B, L, H, D) attention: the flash kernel for lq >= min_flash_len,
-    else (or with `plain`) the plain version. The kernel is bf16: an f32
-    caller (the mask decoder trained under f32 masters) attends through
-    bf16 copies of q, k and v, and gets the output back in its dtype."""
+    else (or with `plain`) the plain version. In the caller's dtype: an f32
+    caller (SAM2 under f32 parameters, as the JAX package computes it)
+    takes the f32 kernel."""
     if q.shape[1] >= min_flash_len and not plain:
-        if q.dtype != torch.bfloat16:
-            return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16()).to(q.dtype)
         return flash_attention(q, k, v)
     return mha_reference(q, k, v)
 

@@ -11,6 +11,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from ...ops.precision import exact_f32
 from ...ops.resize import resize_bilinear, sam_normalize_maybe
 from .config import Sam2Config
 from .layers import MLP
@@ -52,17 +53,23 @@ class Sam2Model(nn.Module):
         `stop_backbone_grad` cuts the gradient at the trunk + neck: they run
         under `torch.no_grad()` (a frozen backbone needs no backward, nor
         its activations kept), while conv_s0/conv_s1, which belong to the
-        trained mask decoder, stay below the cut."""
+        trained mask decoder, stay below the cut.
+
+        Frames in bf16 (the composite's compute dtype) are computed in the
+        encoder's parameters' dtype, as flax promotes them: f32 under f32
+        parameters, whose patch embedding, neck and decoder projections
+        then run without TF32 (`ops.precision.exact_f32`)."""
         x = sam_normalize_maybe(images).to(self.dtype)
-        if stop_backbone_grad:
-            with torch.no_grad():
+        with exact_f32(x):
+            if stop_backbone_grad:
+                with torch.no_grad():
+                    out = self.image_encoder(x)
+            else:
                 out = self.image_encoder(x)
-        else:
-            out = self.image_encoder(x)
-        fpn = list(out["backbone_fpn"])
-        dt = self.sam_mask_decoder.dtype
-        fpn[0] = conv1x1(self.sam_mask_decoder.conv_s0, fpn[0].to(dt))
-        fpn[1] = conv1x1(self.sam_mask_decoder.conv_s1, fpn[1].to(dt))
+            fpn = list(out["backbone_fpn"])
+            dt = self.sam_mask_decoder.dtype
+            fpn[0] = conv1x1(self.sam_mask_decoder.conv_s0, fpn[0].to(dt))
+            fpn[1] = conv1x1(self.sam_mask_decoder.conv_s1, fpn[1].to(dt))
         return {"backbone_fpn": fpn, "vision_pos_enc": out["vision_pos_enc"]}
 
     def forward_sam_heads(self, backbone_features, high_res_features,

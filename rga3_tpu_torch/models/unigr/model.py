@@ -67,7 +67,9 @@ class UniGR(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.grounding_encoder.no_mem_embed.dtype
+        """The compute dtype: the LM's (SAM2 and the head may be held in
+        f32 under f32 parameters, and compute in it)."""
+        return self.qwen.dtype
 
     def seg_embeddings(self, hidden: torch.Tensor, token_ids: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

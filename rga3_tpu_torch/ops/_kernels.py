@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "window_attention.cu", "gemm.cu",
-           "row_ops.cu", "int4_matmul.cu")
+           "row_ops.cu", "int4_matmul.cu", "f32_ops.cu")
 HEADERS = ("attention_mma.cuh", "tma_wgmma.cuh", "device.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -116,6 +116,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rga3_layer_norm_bf16.restype = i
     lib.rga3_window_pool2x2_bf16.argtypes = [i, p, i64, p, i64, i64, i, i, p]
     lib.rga3_window_pool2x2_bf16.restype = i
+    lib.rga3_gemm_f32.argtypes = [i, p, i64, p, i64, p, p, i64, p, i64, i, i, i, i, p]
+    lib.rga3_gemm_f32.restype = i
+    lib.rga3_layer_norm_f32.argtypes = [i, p, i64, p, p, p, i64, i, i, f, p]
+    lib.rga3_layer_norm_f32.restype = i
+    lib.rga3_window_pool2x2_f32.argtypes = [i, p, i64, p, i64, i64, i, i, p]
+    lib.rga3_window_pool2x2_f32.restype = i
+    lib.rga3_attention_f32.argtypes = [i] + [p] * 4 + [i] * 6 + [i64] * 12 + [f, p]
+    lib.rga3_attention_f32.restype = i
     lib.rga3_int4_matmul_bf16.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
     lib.rga3_int4_matmul_bf16.restype = i
     lib.rga3_int4_matmul_workspace_words.argtypes = [i] * 3

@@ -15,6 +15,12 @@ and v at every public function, as in the JAX package.
     `window_reference` for a CPU tensor. Its backward recomputes
     `window_reference` under autograd, as the JAX package's custom_vjp does.
 
+Under f32 parameters the SAM2 encoder and mask decoder compute in f32, as
+the JAX package's do: on an f32 CUDA tensor `window_attention` and
+`flash_attention` (non-causal, without segment ids) launch the f32 variant
+of `csrc/f32_ops.cu` instead, counted in `window_attention_f32` and
+`flash_attention_f32`.
+
 A wrapper never falls back: on a CUDA tensor it launches its kernel or
 raises. Each wrapper counts its launches in `<wrapper>.launches`, so a run
 can show that it went through the kernel, and keeps in `<wrapper>.shapes`
@@ -43,6 +49,8 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIMS = (16, 72, 80, 128, 256)
 # of the backward kernel: the train step's (the tracker does not train)
 BWD_HEAD_DIMS = (16, 72, 80, 128)
+# of the f32 attention (csrc/f32_ops.cu): the SAM2 encoder's and decoder's
+F32_HEAD_DIMS = (16, 72, 80, 128)
 # launches of one flash call (shapes, strides, options) whose segment ids are
 # kept: the tracker's bank gains valid frames from frame to frame at one shape
 # (28 such launches an 8-frame track); bounded, so a long run holds ~16 MB a call
@@ -187,6 +195,47 @@ def _check_cuda_inputs(name: str, *ts: torch.Tensor, head_dims=KERNEL_HEAD_DIMS)
 
 def _ptr_strides(t: torch.Tensor):
     return [t.stride(0), t.stride(1), t.stride(2)]
+
+
+def _check_f32_inputs(name: str, *ts: torch.Tensor) -> None:
+    """The f32 attention's input contract (q, k, v): f32, the head dim
+    contiguous, one device, a head dim in F32_HEAD_DIMS, and 8-byte pieces:
+    the data pointer 8-byte aligned, the strides of every dim longer than
+    one even."""
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the f32 CUDA kernel takes float32, got {t.dtype}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous")
+        if t.device != ts[0].device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if t.data_ptr() % 8 or any(t.stride(d) % 2 for d in range(3) if t.shape[d] > 1):
+            raise ValueError(f"{name}: the f32 kernel reads 8-byte pieces; got a data pointer "
+                             f"{t.data_ptr() % 8} bytes past 8-byte alignment, strides "
+                             f"{t.stride()}")
+    if ts[0].shape[-1] not in F32_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {ts[0].shape[-1]} not in {F32_HEAD_DIMS}")
+
+
+def _f32_strides(t: torch.Tensor):
+    """(batch, row, head) strides, 0 for a dim of one (never stepped)."""
+    return [t.stride(d) if t.shape[d] > 1 else 0 for d in range(3)]
+
+
+def _attention_f32(q, k, v, window, qw, scale):
+    """Launch the f32 attention of `csrc/f32_ops.cu`: query window w
+    (`qw` rows of q) attends to key window w (`window` keys of k and v)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    out = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device)
+    device, stream = _kernels.launch_on("attention_f32", q, k, v)
+    err = _kernels.library().rga3_attention_f32(
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, lk, h, d, window, qw, *_f32_strides(q), *_f32_strides(k), *_f32_strides(v),
+        *_f32_strides(out), float(scale), stream,
+    )
+    _kernels.check(err, "attention_f32")
+    return out
 
 
 def _record(wrapper, key, extra=None, keep=0) -> None:
@@ -398,9 +447,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention, (B, L, H, D), GQA-aware (kv head = h // (H/Hkv)).
 
-    On a CUDA tensor it launches the hand-written kernel (bf16 only), and
-    when grad is on and an input requires it, keeps the log-sum-exp for the
-    backward kernel (`flash_attention_bwd`); on a CPU tensor it computes
+    On a CUDA tensor it launches the hand-written kernel (bf16; at f32 the
+    non-causal, unmasked f32 variant, `flash_attention_f32`), and when grad
+    is on and an input requires it, keeps the log-sum-exp for the backward
+    kernel (`flash_attention_bwd`); on a CPU tensor it computes
     `mha_reference`, differentiable as it is. `causal=True` needs lq == lk,
     as in the JAX package: the kernel aligns the causal mask top-left and
     the reference bottom-right, which agree only then."""
@@ -419,6 +469,11 @@ def flash_attention(
         )
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
+    if q.dtype == torch.float32:
+        if causal or segment_ids is not None or kv_segment_ids is not None:
+            raise ValueError("flash_attention: the f32 kernel takes no mask (causal=False, "
+                             "no segment ids)")
+        return flash_attention_f32(q, k, v, scale=scale)
     _check_cuda_inputs("flash_attention", q, k, v)
     if h % hkv != 0 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError("flash_attention: mismatched q/k/v shapes")
@@ -431,6 +486,36 @@ def flash_attention(
                              f"(it takes {BWD_HEAD_DIMS}); call it under torch.no_grad()")
         return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal), float(scale))
     return _flash_forward(q, k, v, q_seg, kv_seg, causal, scale, with_lse=False)[0]
+
+
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal attention over (B, L, H, D) in f32, without masks: the
+    f32 variant of `flash_attention` (Hiera's global blocks and the SAM2
+    decoder under f32 parameters). On a CUDA tensor it launches the f32
+    attention of `csrc/f32_ops.cu` (f32, 8-byte aligned rows, head dims
+    F32_HEAD_DIMS; k and v with q's heads), differentiable through
+    `mha_reference`; on a CPU tensor it computes `mha_reference`."""
+    b, lq, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_f32: no kernel for {q.device}")
+    _check_f32_inputs("flash_attention_f32", q, k, v)
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
+        raise ValueError("flash_attention_f32: mismatched q/k/v shapes (no GQA at f32)")
+    lk = k.shape[1]
+
+    def kernel(q_, k_, v_):
+        out = _attention_f32(q_, k_, v_, lk, lq, scale)
+        _record(flash_attention_f32, (tuple(q_.shape), q_.stride(), tuple(k_.shape),
+                                      k_.stride(), v_.stride(), False, float(scale)))
+        return out
+
+    return recompute_backward(kernel, lambda q_, k_, v_: mha_reference(q_, k_, v_, scale=scale),
+                              q, k, v)
 
 
 def _window_forward(q, k, v, window, qw, scale):
@@ -468,7 +553,8 @@ def window_attention(
     of `q_window` rows attends to the w-th window of keys.
 
     On a CUDA tensor it launches the hand-written kernel (bf16; the window
-    a multiple of 16, the query window dividing 64 or a multiple of 64),
+    a multiple of 16 or 1, 2, 4 or 8 tokens, the query window dividing 64
+    or a multiple of 64; at f32 the f32 variant, `window_attention_f32`),
     differentiable through `window_reference`; on a CPU tensor it computes
     `window_reference`."""
     qw = window if q_window is None else q_window
@@ -484,11 +570,13 @@ def window_attention(
         return window_reference(q, k, v, window, scale, q_window=qw)
     if q.device.type != "cuda":
         raise RuntimeError(f"window_attention: no kernel for {q.device}")
+    if q.dtype == torch.float32:
+        return window_attention_f32(q, k, v, window, q_window=qw, scale=scale)
     _check_cuda_inputs("window_attention", q, k, v)
     if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]
             or qw not in (window, window // 4)):
         raise ValueError("window_attention: mismatched q/k/v shapes")
-    if window % 16 or (64 % qw if qw < 64 else qw % 64):
+    if (16 % window if window < 16 else window % 16) or (64 % qw if qw < 64 else qw % 64):
         raise ValueError(f"window_attention: unsupported window {window}/{qw}")
     return recompute_backward(
         lambda q_, k_, v_: _window_forward(q_, k_, v_, window, qw, scale),
@@ -496,4 +584,41 @@ def window_attention(
         q, k, v)
 
 
-register(flash_attention, flash_attention_bwd, window_attention)
+def window_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, *,
+                         q_window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """`window_attention` in f32 (the Hiera encoder under f32 parameters):
+    any window and query window. On a CUDA tensor it launches the f32
+    attention of `csrc/f32_ops.cu` (f32, 8-byte aligned rows, head dims
+    F32_HEAD_DIMS), differentiable through `window_reference`; on a CPU
+    tensor it computes `window_reference`."""
+    qw = window if q_window is None else q_window
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if lk % window != 0 or lq != lk // window * qw:
+        raise ValueError(
+            f"window_attention_f32: Lk={lk} in windows of {window} does not give "
+            f"Lq={lq} in windows of {qw}")
+    if q.device.type == "cpu":
+        return window_reference(q, k, v, window, scale, q_window=qw)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"window_attention_f32: no kernel for {q.device}")
+    _check_f32_inputs("window_attention_f32", q, k, v)
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:]:
+        raise ValueError("window_attention_f32: mismatched q/k/v shapes")
+
+    def kernel(q_, k_, v_):
+        out = _attention_f32(q_, k_, v_, window, qw, scale)
+        _record(window_attention_f32, (tuple(q_.shape), q_.stride(), k_.stride(), v_.stride(),
+                                       int(window), float(scale), tuple(k_.shape), int(qw)))
+        return out
+
+    return recompute_backward(
+        kernel, lambda q_, k_, v_: window_reference(q_, k_, v_, window, scale, q_window=qw),
+        q, k, v)
+
+
+register(flash_attention, flash_attention_bwd, window_attention, flash_attention_f32,
+         window_attention_f32)

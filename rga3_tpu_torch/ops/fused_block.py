@@ -33,6 +33,15 @@ layout (qkv rows ordered (q|k|v) x heads x head_dim). The TPU block sizes
 (`block_q`, `block_f`, the config's `fused_block_q_*`) do not change the
 function and are not taken.
 
+Under f32 parameters (the train entry point's release default) the JAX
+package computes the encoder in f32, and its Pallas bodies in their inputs'
+dtype. On an f32 CUDA tensor every wrapper here then runs the f32 variants
+of its three kernels (`gemm_f32`, `layer_norm_f32`, `window_pool2x2_f32`,
+`csrc/f32_ops.cu`, and the f32 attention of `ops.attention`): the same
+functions, kept in f32 wherever the bf16 route rounds, on the CUDA cores
+(no TF32). Those calls count in the f32 kernels' records, not in the block
+wrappers', whose records are the bf16 route's.
+
 Every wrapper computes its plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernels or raises; it counts the calls that took the
 kernel route in `<wrapper>.launches` and records them in `<wrapper>.shapes`
@@ -133,13 +142,13 @@ def window_pool2x2_reference(x, ws: int):
 # --------------------------------------------------------------------------
 
 
-def _check_cuda(name: str, *ts: torch.Tensor) -> None:
+def _check_cuda(name: str, *ts: torch.Tensor, dtype=torch.bfloat16) -> None:
     dev = ts[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for {dev}")
     for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bf16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: inputs on different devices")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -156,18 +165,22 @@ def gemm(a, w, bias, *, epilogue="bias", residual=None):
 
     On a CUDA tensor it launches `csrc/gemm.cu` (bf16, contiguous and
     16-byte aligned, the bias and residual too, since TMA reads a and w;
-    K a multiple of 8, N even) or raises ValueError before any launch; on
-    a CPU tensor it computes `gemm_reference`."""
+    K a multiple of 8, N even), or for f32 operands the f32 variant
+    (`gemm_f32`), or raises before any launch; on a CPU tensor it computes
+    `gemm_reference`."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"gemm: unknown epilogue {epilogue!r}")
     if a.device.type == "cpu":
         return gemm_reference(a, w, bias, epilogue=epilogue, residual=residual)
+    f32 = a.dtype == torch.float32
     k = a.shape[-1]
     n = w.shape[0]
     m = a.numel() // k
     needs_res = epilogue.startswith("res")
-    _check_cuda("gemm", a, w, bias, *((residual,) if needs_res else ()))
-    if w.shape != (n, k) or bias.shape != (n,) or k % 8 or n % 2 or m == 0:
+    _check_cuda("gemm", a, w, bias, *((residual,) if needs_res else ()),
+                dtype=torch.float32 if f32 else torch.bfloat16)
+    if (w.shape != (n, k) or bias.shape != (n,) or k % (4 if f32 else 8) or (n % 2 and not f32)
+            or m == 0):
         raise ValueError(f"gemm: unsupported shapes a {tuple(a.shape)} w {tuple(w.shape)}")
     if needs_res and residual.shape != a.shape[:-1] + (n,):
         raise ValueError("gemm: the residual must have the output's shape")
@@ -179,66 +192,95 @@ def gemm(a, w, bias, *, epilogue="bias", residual=None):
 
 
 def _gemm(a, w, bias, epilogue, residual=None):
+    f32 = a.dtype == torch.float32
     k = a.shape[-1]
     n = w.shape[0]
     m = a.numel() // k
     out = torch.empty(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
     device, stream = _kernels.launch_on("gemm", a, w, bias, residual)
-    err = _kernels.library().rga3_gemm_bf16(
+    lib = _kernels.library()
+    err = (lib.rga3_gemm_f32 if f32 else lib.rga3_gemm_bf16)(
         device, a.data_ptr(), k, w.data_ptr(), k, bias.data_ptr(),
         None if residual is None else residual.data_ptr(), n,
         out.data_ptr(), n, m, n, k, EPILOGUES[epilogue], stream,
     )
     _kernels.check(err, "gemm")
-    _record(gemm, (m, n, k, epilogue))
+    _record(gemm_f32 if f32 else gemm, (m, n, k, epilogue))
     return out
 
 
+def _f32_only(name: str, x) -> None:
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        raise TypeError(f"{name}: the f32 variant takes float32, got {x.dtype}")
+
+
+def gemm_f32(a, w, bias, *, epilogue="bias", residual=None):
+    """`gemm` on f32 operands, whose launches this wrapper counts: the f32
+    variant of `csrc/f32_ops.cu`, f32 operands and FMA accumulation on the
+    CUDA cores (no TF32, no tensor cores), K a multiple of 4; "res_bf16" is
+    residual + (acc + bias), which the bf16 kernel rounds in between."""
+    _f32_only("gemm_f32", a)
+    return gemm(a, w, bias, epilogue=epilogue, residual=residual)
+
+
 def layer_norm(x, g, b, eps):
-    """bf16(LayerNorm(x)) over the last dim with f32 statistics. On a CUDA
-    tensor it launches `csrc/row_ops.cu` (bf16 and contiguous, gamma and
-    beta too; D a multiple of 8); on a CPU tensor it computes
-    `layer_norm_reference`."""
+    """LayerNorm(x) over the last dim with f32 statistics, rounded to x's
+    dtype. On a CUDA tensor it launches `csrc/row_ops.cu` (bf16 and
+    contiguous, gamma and beta too; D a multiple of 8), or for f32 inputs
+    the f32 variant (`layer_norm_f32`; D a multiple of 4); on a CPU tensor
+    it computes `layer_norm_reference`."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, g, b, eps)
-    _check_cuda("layer_norm", x, g, b)
+    f32 = x.dtype == torch.float32
+    _check_cuda("layer_norm", x, g, b, dtype=torch.float32 if f32 else torch.bfloat16)
     d = x.shape[-1]
     rows = x.numel() // d
-    if d % 8 or rows == 0 or g.shape != (d,) or b.shape != (d,):
+    if d % (4 if f32 else 8) or rows == 0 or g.shape != (d,) or b.shape != (d,):
         raise ValueError(f"layer_norm: unsupported shape {tuple(x.shape)}")
     return recompute_backward(lambda x, g, b: _layer_norm(x, g, b, eps),
                               lambda x, g, b: layer_norm_reference(x, g, b, eps), x, g, b)
 
 
 def _layer_norm(x, g, b, eps):
+    f32 = x.dtype == torch.float32
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
     device, stream = _kernels.launch_on("layer_norm", x, g, b)
-    err = _kernels.library().rga3_layer_norm_bf16(
+    lib = _kernels.library()
+    err = (lib.rga3_layer_norm_f32 if f32 else lib.rga3_layer_norm_bf16)(
         device, x.data_ptr(), d, g.data_ptr(), b.data_ptr(), out.data_ptr(), d,
         rows, d, float(eps), stream,
     )
     _kernels.check(err, "layer_norm")
-    _record(layer_norm, (rows, d, float(eps)))
+    _record(layer_norm_f32 if f32 else layer_norm, (rows, d, float(eps)))
     return out
+
+
+def layer_norm_f32(x, g, b, eps):
+    """`layer_norm` on f32 inputs, whose launches this wrapper counts: the
+    f32 variant of `csrc/f32_ops.cu` (two-pass statistics, f32 output)."""
+    _f32_only("layer_norm_f32", x)
+    return layer_norm(x, g, b, eps)
 
 
 def window_pool2x2(x, ws: int):
     """The 2x2 max pool inside each ws x ws window of window-major tokens,
     (B, n_win*ws*ws, C) -> (B, n_win*(ws//2)**2, C). x may be a column slice
     of a wider tensor (the q of a packed qkv). On a CUDA tensor it launches
-    `csrc/row_ops.cu` (bf16, C and the row stride multiples of 8); on a CPU
-    tensor it computes `window_pool2x2_reference`."""
+    `csrc/row_ops.cu` (bf16, C and the row stride multiples of 8), or for
+    f32 inputs the f32 variant (`window_pool2x2_f32`; multiples of 4); on a
+    CPU tensor it computes `window_pool2x2_reference`."""
     if x.device.type == "cpu":
         return window_pool2x2_reference(x, ws)
     if x.device.type != "cuda":
         raise RuntimeError(f"window_pool2x2: no kernel for {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"window_pool2x2: the CUDA kernel takes bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"window_pool2x2: the CUDA kernel takes bf16 or f32, got {x.dtype}")
     b, l, c = x.shape
     ld = x.stride(1)
-    if (ws % 2 or l % (ws * ws) or c % 8 or x.stride(2) != 1 or ld % 8
+    piece = 4 if x.dtype == torch.float32 else 8  # elements in 16 bytes
+    if (ws % 2 or l % (ws * ws) or c % piece or x.stride(2) != 1 or ld % piece
             or x.stride(0) != l * ld or x.data_ptr() % 16):
         raise ValueError(
             f"window_pool2x2: unsupported input {tuple(x.shape)} {x.stride()} ws={ws}")
@@ -247,22 +289,38 @@ def window_pool2x2(x, ws: int):
 
 
 def _window_pool2x2(x, ws):
+    f32 = x.dtype == torch.float32
     b, l, c = x.shape
     ld = x.stride(1)
     out = torch.empty((b, l // 4, c), dtype=x.dtype, device=x.device)
     device, stream = _kernels.launch_on("window_pool2x2", x)
-    err = _kernels.library().rga3_window_pool2x2_bf16(
+    lib = _kernels.library()
+    err = (lib.rga3_window_pool2x2_f32 if f32 else lib.rga3_window_pool2x2_bf16)(
         device, x.data_ptr(), ld, out.data_ptr(), c, b * l // 4, ws, c, stream,
     )
     _kernels.check(err, "window_pool2x2")
-    _record(window_pool2x2, (tuple(x.shape), x.stride(), int(ws)))
+    _record(window_pool2x2_f32 if f32 else window_pool2x2, (tuple(x.shape), x.stride(), int(ws)))
     return out
+
+
+def window_pool2x2_f32(x, ws: int):
+    """`window_pool2x2` on f32 inputs, whose launches this wrapper counts:
+    the f32 variant of `csrc/f32_ops.cu`."""
+    _f32_only("window_pool2x2_f32", x)
+    return window_pool2x2(x, ws)
 
 
 # --------------------------------------------------------------------------
 # the Pallas kernels' functions, written once over a table of operations:
 # the plain versions (_PLAIN) or the kernels' wrappers (_KERNEL)
 # --------------------------------------------------------------------------
+
+
+def _record_bf16(x, wrapper, key) -> None:
+    """Record a block wrapper's call on the bf16 route; an f32 call counts
+    in the f32 kernels' records only."""
+    if x.dtype != torch.float32:
+        _record(wrapper, key)
 
 
 def _ln_qkv(o, x, g, b, w, bias, eps):
@@ -379,7 +437,7 @@ def ln_qkv(x, g, b, w, bias, *, eps=1e-6):
         return ln_qkv_reference(x, g, b, w, bias, eps=eps)
     out = recompute_backward(lambda *t: _ln_qkv(_KERNEL, *t, eps),
                              lambda *t: _ln_qkv(_PLAIN, *t, eps), x, g, b, w, bias)
-    _record(ln_qkv, (tuple(x.shape), w.shape[0], float(eps)))
+    _record_bf16(x, ln_qkv, (tuple(x.shape), w.shape[0], float(eps)))
     return out
 
 
@@ -394,7 +452,7 @@ def proj_mlp(attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2, *, eps=1e-6,
         lambda *t: _proj_mlp(_KERNEL, *t, eps, gelu_tanh),
         lambda *t: _proj_mlp(_PLAIN, *t, eps, gelu_tanh),
         attn, x, wproj, bproj, ln2_g, ln2_b, w1, b1, w2, b2)
-    _record(proj_mlp, (tuple(x.shape), w1.shape[0], float(eps), bool(gelu_tanh)))
+    _record_bf16(x, proj_mlp, (tuple(x.shape), w1.shape[0], float(eps), bool(gelu_tanh)))
     return out
 
 
@@ -406,7 +464,7 @@ def proj_ln(attn, x, wproj, bproj, ln2_g, ln2_b, *, eps=1e-6):
     out = recompute_backward(lambda *t: _proj_ln(_KERNEL, *t, eps),
                              lambda *t: _proj_ln(_PLAIN, *t, eps),
                              attn, x, wproj, bproj, ln2_g, ln2_b)
-    _record(proj_ln, (tuple(x.shape), float(eps)))
+    _record_bf16(x, proj_ln, (tuple(x.shape), float(eps)))
     return out
 
 
@@ -418,7 +476,7 @@ def mlp_blocked(ln2y, y, w1, b1, w2, b2, *, gelu_tanh=True):
     out = recompute_backward(lambda *t: _mlp_blocked(_KERNEL, *t, gelu_tanh),
                              lambda *t: _mlp_blocked(_PLAIN, *t, gelu_tanh),
                              ln2y, y, w1, b1, w2, b2)
-    _record(mlp_blocked, (tuple(y.shape), w1.shape[0], bool(gelu_tanh)))
+    _record_bf16(y, mlp_blocked, (tuple(y.shape), w1.shape[0], bool(gelu_tanh)))
     return out
 
 
@@ -479,8 +537,8 @@ def fused_window_block(x, params, *, num_heads, window, eps=1e-6, scale=None,
                                scale=scale, gelu_tanh=gelu_tanh)
     out = _block_call(_window_block, x, params, num_heads, window, eps, scale, gelu_tanh,
                       False)
-    _record(fused_window_block, (tuple(x.shape), params["w1"].shape[0], num_heads,
-                                 window, float(eps), float(scale), gelu_tanh))
+    _record_bf16(x, fused_window_block, (tuple(x.shape), params["w1"].shape[0], num_heads,
+                                         window, float(eps), float(scale), gelu_tanh))
     return out
 
 
@@ -496,8 +554,9 @@ def fused_window_block_split(x, params, *, num_heads, window, eps=1e-6, scale=No
                                scale=scale, gelu_tanh=gelu_tanh, split=True)
     out = _block_call(_window_block, x, params, num_heads, window, eps, scale, gelu_tanh,
                       True)
-    _record(fused_window_block_split, (tuple(x.shape), params["w1"].shape[0], num_heads,
-                                       window, float(eps), float(scale), gelu_tanh))
+    _record_bf16(x, fused_window_block_split, (
+        tuple(x.shape), params["w1"].shape[0], num_heads, window, float(eps), float(scale),
+        gelu_tanh))
     return out
 
 
@@ -509,8 +568,8 @@ def fused_global_block(x, params, *, num_heads, eps=1e-6, scale=None, gelu_tanh=
         return reference_global_block(x, params, num_heads=num_heads, eps=eps, scale=scale,
                                       gelu_tanh=gelu_tanh)
     out = _block_call(_global_block, x, params, num_heads, eps, scale, gelu_tanh)
-    _record(fused_global_block, (tuple(x.shape), params["w1"].shape[0], num_heads,
-                                 float(eps), float(scale), gelu_tanh))
+    _record_bf16(x, fused_global_block, (tuple(x.shape), params["w1"].shape[0], num_heads,
+                                         float(eps), float(scale), gelu_tanh))
     return out
 
 
@@ -531,11 +590,12 @@ def fused_transition_block(x, params, *, num_heads, ws, eps=1e-6, scale=None,
         return reference_transition(x, params, num_heads=num_heads, ws=ws, eps=eps,
                                     scale=scale, gelu_tanh=gelu_tanh)
     out = _block_call(_transition, x, params, num_heads, ws, eps, scale, gelu_tanh)
-    _record(fused_transition_block, (tuple(x.shape), c_out, params["w1"].shape[0],
-                                     num_heads, ws, float(eps), float(scale), gelu_tanh))
+    _record_bf16(x, fused_transition_block, (tuple(x.shape), c_out, params["w1"].shape[0],
+                                             num_heads, ws, float(eps), float(scale),
+                                             gelu_tanh))
     return out
 
 
 register(gemm, layer_norm, window_pool2x2, ln_qkv, proj_mlp, proj_ln, mlp_blocked,
          fused_window_block, fused_window_block_split, fused_global_block,
-         fused_transition_block)
+         fused_transition_block, gemm_f32, layer_norm_f32, window_pool2x2_f32)

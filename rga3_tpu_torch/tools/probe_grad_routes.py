@@ -5,9 +5,8 @@ in-repo learned weights and with random weights.
     PYTHONPATH=. python3 rga3_tpu_torch/tools/probe_grad_routes.py [--seed N]
 
 Needs an NVIDIA GPU. The model is the learning-proof run's (`tiny_config()`
-with the release LoRA, `tiny_sam2_config()`; the Hiera windows widened to
-16 tokens, which the window kernel needs and which leave the parameters as
-they are), bf16 on the card. Weights: `runs/learning_proof_tiny/
+with the release LoRA, `tiny_sam2_config()`, whose 2x2 windows the window
+kernel packs 4 to a tile), bf16 on the card. Weights: `runs/learning_proof_tiny/
 params_f16.npz` (--npz), then normal(0, 0.02) from --seed. The batch: two
 samples of the learning-proof task (a bright red box on a dark noisy image,
 "the bright red box", the box as the mask), collated by the port. For each
@@ -106,7 +105,7 @@ def main() -> int:
     q = tiny_config()
     q = q.replace(text=q.text.replace(lora_rank=128, lora_alpha=256.0))
     sam = tiny_sam2_config()
-    sam = sam.replace(hiera=sam.hiera.replace(window_spec=(4, 4, 4, 4), fused_block_max_dim=32))
+    sam = sam.replace(hiera=sam.hiera.replace(fused_block_max_dim=32))
     cfg = UniGRConfig(qwen=q, sam2=sam,
                       seg=SegHeadConfig(out_dim=sam.d_model, seg_token_id=proc.seg_token_id))
     batch = make_batch(cfg, proc, args.seed, torch.device("cuda"))

@@ -709,3 +709,42 @@ def write_train_tree(root: str, datasets=TRAIN_DATASETS, seed: int = 0,
     if sz["val_images"]:
         write_reason_seg_tree(root, "val", int(rng.integers(1 << 30)), sz["val_images"], sz["val"])
     return root
+
+
+def _learnable_sample(rng: np.random.Generator, h: int, w: int):
+    """A dark noisy image with one bright uniform rectangle, and the
+    rectangle's corners as the target polygon: a visible target, so a model
+    that learns it must be reading the image."""
+    img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+    bh = int(rng.integers(h // 4, h // 2))
+    bw = int(rng.integers(w // 4, w // 2))
+    y0 = int(rng.integers(2, h - bh - 2))
+    x0 = int(rng.integers(2, w - bw - 2))
+    img[y0:y0 + bh, x0:x0 + bw] = (230, 40, 40)
+    pts = [[x0, y0], [x0 + bw - 1, y0], [x0 + bw - 1, y0 + bh - 1], [x0, y0 + bh - 1]]
+    return img, pts
+
+
+def build_learn_root(root: str, n_train: int = 24, n_val: int = 8, size=(64, 88),
+                     seed: int = 0) -> str:
+    """The learning-proof run's ReasonSeg-layout tree (`tests/synth_data.py`'s
+    `build_learn_root`, file for file): bright-box localization, with train
+    and val positions drawn apart, "the bright red box" as every
+    expression. `runs/learning_proof_tiny/params_f16.npz` was trained on
+    such a tree; `tools/verify_checkpoints.py` scores it on one of a fresh
+    seed. Returns `root`."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    for split, n in (("train", n_train), ("val", n_val)):
+        d = os.path.join(root, "reason_seg", "ReasonSeg", split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            img, pts = _learnable_sample(rng, h, w)
+            Image.fromarray(img).save(os.path.join(d, f"{split}{i:03d}.jpg"))
+            anno = {"shapes": [{"label": "target", "points": pts}],
+                    "text": ["the bright red box"], "is_sentence": False}
+            with open(os.path.join(d, f"{split}{i:03d}.json"), "w") as f:
+                json.dump(anno, f)
+    return root

@@ -12,8 +12,9 @@ in index order; `--grad_accum_steps` micro-batches of `--micro_batch_size`
 samples per step, padded across micro-batches to one length; masked AdamW
 with warmup then cosine (`train.optimizer`), with f32 masters of the
 trainable tensors under `--param_dtype float32` (the model computes in
-bf16, except the SAM2 mask decoder and `text_hidden_fcs`, which are held
-and computed in f32 there, as JAX's f32 parameters promote them);
+bf16, except SAM2, `text_hidden_fcs` and the LM's embedding and head,
+which are held and computed in f32 there, as JAX's f32 parameters promote
+them: `hold_f32`);
 the LM's activations under `--remat` ("dots" keeps the weight
 products' outputs); a ReasonSeg-val gIoU / cIoU after each epoch;
 checkpoints with auto-resume (`train.checkpoints`). `--config` is a JSON
@@ -278,11 +279,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
+def hold_f32(model) -> None:
+    """Hold in f32 the modules whose outputs JAX's f32 parameters make f32
+    (`tests/probe_f32_modules.py dtypes`): the whole of SAM2 (the frozen
+    image encoder, its Hiera trunk and neck on the f32 kernels, and the
+    trained mask decoder), `text_hidden_fcs`, and the LM's embedding and
+    `lm_head`, whose f32 parameters promote their bf16 inputs (the
+    embedding's rows are cast to the decoder's bf16, as JAX casts them).
+    Called before the draws, which then land in f32 unrounded; a trainable
+    tensor already in f32 is its own master in `MaskedAdamW`: at 7B the
+    embedding and the head are 152064 x 3584 x 4 B = 2.18 GB each, where a
+    bf16 copy and its f32 master held 3.27 GB each."""
+    model.grounding_encoder.float()
+    model.text_hidden_fcs.float()
+    lm = model.qwen.lm
+    lm.embed_tokens.float()
+    if not lm.cfg.tie_word_embeddings:
+        lm.lm_head.float()
+
+
 def build(args, device: torch.device, resuming: bool = False, mesh=None):
     """(the UniGR of `args`, bf16, its parameters from `--model_dir` /
     `--sam_pretrained` and `assemble_params`; its processor; under
-    `--param_dtype float32` the f32 draws of the trainable tensors, and the
-    SAM2 mask decoder and `text_hidden_fcs` held in f32).
+    `--param_dtype float32` the f32 draws of the trainable tensors, and
+    SAM2, `text_hidden_fcs` and the LM's embedding and head held in f32,
+    `hold_f32`).
     `resuming`: the trainable tensors are not drawn (the checkpoint holds
     them). Over a `mesh` of more than one rank the model is built on the
     meta device and cut to this rank's blocks on `device` first."""
@@ -302,10 +323,7 @@ def build(args, device: torch.device, resuming: bool = False, mesh=None):
     model = UniGR(cfg, device="meta" if sharded else device, dtype=torch.bfloat16,
                   remat=args.remat)
     if args.param_dtype == "float32":
-        # JAX's f32 parameters promote these modules' bf16 inputs to f32;
-        # cast before the draws, which then land in f32 unrounded
-        model.grounding_encoder.sam_mask_decoder.float()
-        model.text_hidden_fcs.float()
+        hold_f32(model)
     def trainable(key):
         return any(pat in key for pat in DEFAULT_TRAINABLE_PATTERNS)
 

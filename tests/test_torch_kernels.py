@@ -110,9 +110,12 @@ def test_flash_strided_inputs(dev):
 
 @pytest.mark.cuda
 def test_flash_rejects_what_it_does_not_take(dev):
-    q = torch.zeros(1, 64, 2, 16, device=dev)  # f32
+    q = torch.zeros(1, 64, 2, 16, device=dev, dtype=torch.float16)  # neither bf16 nor f32
     with pytest.raises(TypeError):
         tatt.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 2, 16, device=dev)  # f32: the f32 forward takes no mask
+    with pytest.raises(ValueError):
+        tatt.flash_attention(q, q, q, causal=True)
     q = torch.zeros(1, 64, 2, 24, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tatt.flash_attention(q, q, q)

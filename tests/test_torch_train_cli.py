@@ -17,10 +17,10 @@ synthetic tree (`tools/synth_trees.write_train_tree`):
   model, parameters, optimizer and loss) fed the accumulation batches the
   port CLI built, at lr 1e-3. The LM computes in bf16 on both sides (the
   JAX script casts its f32 parameters to bf16 at each use; the port keeps
-  a bf16 model with f32 masters); the SAM decoder and text_hidden_fcs
-  compute in f32 on both sides (flax promotes bf16 activations against
-  f32 parameters; the port holds them in f32, their own masters), so both
-  pick the same best-IoU mask. The random-init network's
+  a bf16 model with f32 masters); SAM2, text_hidden_fcs and the LM's
+  embedding and head compute in f32 on both sides (flax promotes bf16
+  activations against f32 parameters; the port holds them in f32, the
+  trainable ones their own masters), so both pick the same best-IoU mask. The random-init network's
   loss averages those roundings over every token and logit: the traces
   differ by ~1e-6 relative, and the gate is LOSS_TOL = 1e-5 relative. The
   first step runs at lr 0 (the warmup), so the third loss is the first
@@ -35,9 +35,9 @@ synthetic tree (`tools/synth_trees.write_train_tree`):
   start) within LM_UPDATE_TOL relative L2 of JAX's (measured up to 3.3e-3
   over 22 hash seeds), and the decoder's and text_hidden_fcs' updates
   each within F32_UPDATE_TOL (measured 0.64-1.25% and 0.40-1.04% over 9
-  hash seeds by `tests/probe_f32_modules.py updates`; the frozen SAM2 image
-  encoder, which JAX computes in f32 from f32 weights and the port in
-  bf16, accounts for all but ~0.03% of it). The
+  hash seeds by `tests/probe_f32_modules.py updates` while the frozen SAM2
+  image encoder, which JAX computes in f32 from f32 weights, was bf16 in
+  the port; ~0.03% since it is held in f32, `test_torch_f32_encoder.py`). The
   JAX script itself takes ~110 s at this size on this CPU (its train
   step's compile), so the batches are fed in process.
 * `--profile_dir` writes a torch.profiler trace of the run, and each step
@@ -86,6 +86,8 @@ LOSS_TOL = 1e-5
 LM_UPDATE_TOL = 2e-2
 F32_UPDATE_TOL = 5e-2
 F32_GROUPS = ("grounding_encoder.sam_mask_decoder.", "text_hidden_fcs.")
+# trainable tensors the CLI holds in f32 under f32 parameters (`cli.hold_f32`)
+F32_HELD = F32_GROUPS + ("qwen.lm.embed_tokens.", "qwen.lm.lm_head.")
 LR = 1e-3
 TRAIN_KEYS = ("input_ids", "labels", "position_ids", "segment_ids", "images_sam", "gt_masks",
               "masks_valid")
@@ -396,8 +398,9 @@ def test_cli_loss_trace_matches_jax_train_step(jax_params, tree, tmp_path, monke
     assert set(opt.master) == set(opt.params) and len(opt.master) > 100
     moved = 0
     for name, master in opt.master.items():
-        # the decoder and text_hidden_fcs are held in f32: their own masters
-        f32 = name.startswith(F32_GROUPS)
+        # SAM2, text_hidden_fcs and the LM's embedding and head are held in
+        # f32: their own masters
+        f32 = name.startswith(F32_HELD)
         assert master.dtype == torch.float32
         assert opt.params[name].dtype == (torch.float32 if f32 else torch.bfloat16), name
         assert f32 == (master.data_ptr() == opt.params[name].data_ptr()), name
