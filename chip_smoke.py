@@ -272,7 +272,9 @@ Phases, each timed on its own line:
      cross-attention at every bank it saw; bf16 inputs; per
      output row within ROW_TOL of the row's max|plain|; the f32 variants
      in f32 within F32_TOL, TF32 off, against cuBLAS f32 and SDPA's math
-     path as the library and the f32 peak in the bound; the flash backward
+     path as the library, the f32 GEMM's and attention's bound at the
+     3xTF32 peak (PEAK_3XTF32_FLOPS) with their share of the CUDA cores'
+     f32 bound beside it, the row kernels' at the f32 peak; the flash backward
      against `flash_attention_bwd_reference`, dq, dk and dv per row), with
      its time, its bound, the plain version's time and the time of the same
      function composed of PyTorch library calls
@@ -327,6 +329,10 @@ REPS = 10  # timed launches per kernel shape, after one warm-up
 ENCODE_PAIRS = 6  # fused/unfused SAM encodes timed in turns
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 on the CUDA cores, no tensor cores (data sheet)
+# f32-accurate products on the tensor cores: the H100 SXM's dense TF32 rate
+# (495 TFLOP/s, NVIDIA data sheet) over the three TF32 products of each f32
+# product in the 3xTF32 split of csrc/f32_ops.cu
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 L2_ROTATE_BYTES = 100e6  # twice the H100's 50 MB L2: weights timed from device memory
 CHAT_TOKENS = 64  # max_new_tokens of the chat phase
@@ -478,7 +484,8 @@ VOCAB_ROWS = ("embed_tokens.weight", "lm_head.weight")
 RELEASE_CONFIG = os.path.join(HERE, "configs", "release_7b.json")
 # kernels (by name) that ptxas must compile without spills
 NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel",
-            "int4_tile_kernel")
+            "int4_tile_kernel", "gemm_3xtf32_kernel", "attention_3xtf32_kernel",
+            "layer_norm_f32_kernel", "window_pool_f32_kernel")
 
 
 def log(msg: str) -> None:
@@ -1067,7 +1074,16 @@ def check_transition(key, _extra, gen, reps):
 
 # ---- the f32 variants (csrc/f32_ops.cu): each at its recorded calls
 # against its f32 plain version, TF32 off since phase 1, within F32_TOL; the
-# library time is cuBLAS f32 / SDPA's math path, the bound at the f32 peak
+# library time is cuBLAS f32 / SDPA's math path; the GEMM's and the
+# attention's bound at the 3xTF32 peak, their share of the CUDA cores' f32
+# bound beside it, the row kernels' bound at the f32 peak
+
+
+def with_cuda_core_share(r, flops, nbytes):
+    """`r` of a 3xTF32 kernel with its bound at the CUDA cores' f32 peak."""
+    r["flops"] = flops
+    r["cuda_core_bound"] = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return r
 
 
 def rand32(shape, gen, scale=1.0):
@@ -1095,9 +1111,8 @@ def check_gemm_f32(key, _extra, gen, reps):
     nbytes = 4.0 * (m * k + n * k + m * n * (2 if res is not None else 1))
     r = measure(f"f32 M={m} N={n} K={k} epilogue={epi}", lambda: fb.gemm_f32(a, w, bias, **kw),
                 lambda: fb.gemm_reference(a, w, bias, **kw), lib, 2.0 * m * n * k, nbytes, reps,
-                tol=F32_TOL, peak=PEAK_F32_FLOPS)
-    r["flops"] = 2.0 * m * n * k
-    return r
+                tol=F32_TOL, peak=PEAK_3XTF32_FLOPS)
+    return with_cuda_core_share(r, 2.0 * m * n * k, nbytes)
 
 
 def check_layer_norm_f32(key, _extra, gen, reps):
@@ -1140,9 +1155,8 @@ def check_window_f32(key, _extra, gen, reps):
                 lambda: window_attention_f32(q, k, v, w, q_window=qw, scale=scale),
                 lambda: window_reference(q, k, v, w, scale, q_window=qw),
                 lambda: lib_window(q, k, v, w, qw, scale), flops, nbytes, reps,
-                tol=F32_TOL, peak=PEAK_F32_FLOPS)
-    r["flops"] = flops
-    return r
+                tol=F32_TOL, peak=PEAK_3XTF32_FLOPS)
+    return with_cuda_core_share(r, flops, nbytes)
 
 
 def check_flash_f32(key, _extra, gen, reps):
@@ -1169,9 +1183,8 @@ def check_flash_f32(key, _extra, gen, reps):
     r = measure(f"f32 B={b} Lq={lq} Lk={lk} H={h} D={d}",
                 lambda: flash_attention_f32(q, k, v, scale=scale),
                 lambda: plain_flash(q, k, v, kw), lib, flops, nbytes, reps,
-                tol=F32_TOL, peak=PEAK_F32_FLOPS)
-    r["flops"] = flops
-    return r
+                tol=F32_TOL, peak=PEAK_3XTF32_FLOPS)
+    return with_cuda_core_share(r, flops, nbytes)
 
 
 def time_graph(make_fn, copies, reps):
@@ -4927,7 +4940,8 @@ def kernels_phase(paths: dict, seed: int) -> list:
     gen = torch.Generator("cuda").manual_seed(seed)
     kernels = []
     for kname, check, src, replaces in KERNELS:
-        tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0)
+        tot = dict(ms=0.0, plain_ms=0.0, lib_ms=0.0, bound_ms=0.0, ops_ms=0.0, err=0.0,
+                   core_ms=None)
         merged, per_path = {}, {}
         for pname, (_, pcalls) in paths.items():
             for key, (n, extra) in pcalls[kname].items():
@@ -4942,7 +4956,10 @@ def kernels_phase(paths: dict, seed: int) -> list:
                 f"({r['bound'][1]}), share of bound {r['bound'][0] / r['ms']:.3f}, "
                 f"plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
                 + (f", TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} (library "
-                   f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else ""))
+                   f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else "")
+                + (f", CUDA-core f32 bound_ms {r['cuda_core_bound'][0]:.4f} "
+                   f"({r['cuda_core_bound'][1]}), share {r['cuda_core_bound'][0] / r['ms']:.3f}"
+                   if "cuda_core_bound" in r else ""))
             for pname, pn in by_path.items():
                 per_path[pname] = per_path.get(pname, 0.0) + pn * r["ms"]
             tot["ms"] += n * r["ms"]
@@ -4950,12 +4967,17 @@ def kernels_phase(paths: dict, seed: int) -> list:
             tot["lib_ms"] = (None if tot["lib_ms"] is None or r["lib_ms"] is None
                              else tot["lib_ms"] + n * r["lib_ms"])
             tot["bound_ms"] += n * r["bound"][0]
+            if "cuda_core_bound" in r:
+                tot["core_ms"] = (tot["core_ms"] or 0.0) + n * r["cuda_core_bound"][0]
             if r["bound"][1] == "operations":
                 tot["ops_ms"] += n * r["bound"][0]
             tot["err"] = max(tot["err"], r["err"])
         total = sum(pl[kname] for pl, _ in paths.values())
         log(f"kernel {kname}: {total} launches, ms by path: "
-            + ", ".join(f"{p} {paths[p][0][kname]}x {v:.4f}" for p, v in per_path.items()))
+            + ", ".join(f"{p} {paths[p][0][kname]}x {v:.4f}" for p, v in per_path.items())
+            + ("" if tot["core_ms"] is None else
+               f"; bound_ms {tot['bound_ms']:.4f} (3xTF32), CUDA-core f32 bound_ms "
+               f"{tot['core_ms']:.4f}"))
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": total, "max_abs_err": tot["err"], "ms": tot["ms"],

@@ -494,8 +494,10 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     f32 variant of `flash_attention` (Hiera's global blocks and the SAM2
     decoder under f32 parameters). On a CUDA tensor it launches the f32
     attention of `csrc/f32_ops.cu` (f32, 8-byte aligned rows, head dims
-    F32_HEAD_DIMS; k and v with q's heads), differentiable through
-    `mha_reference`; on a CPU tensor it computes `mha_reference`."""
+    F32_HEAD_DIMS; k and v with q's heads: a tensor-core tile whose
+    products run in 3xTF32, f32's accuracy whatever the TF32 flags say),
+    differentiable through `mha_reference`; on a CPU tensor it computes
+    `mha_reference`."""
     b, lq, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -590,8 +592,9 @@ def window_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wind
     """`window_attention` in f32 (the Hiera encoder under f32 parameters):
     any window and query window. On a CUDA tensor it launches the f32
     attention of `csrc/f32_ops.cu` (f32, 8-byte aligned rows, head dims
-    F32_HEAD_DIMS), differentiable through `window_reference`; on a CPU
-    tensor it computes `window_reference`."""
+    F32_HEAD_DIMS; the tensor-core tile of `flash_attention_f32`, in
+    3xTF32), differentiable through `window_reference`; on a CPU tensor it
+    computes `window_reference`."""
     qw = window if q_window is None else q_window
     b, lq, h, d = q.shape
     lk = k.shape[1]

@@ -38,8 +38,10 @@ package computes the encoder in f32, and its Pallas bodies in their inputs'
 dtype. On an f32 CUDA tensor every wrapper here then runs the f32 variants
 of its three kernels (`gemm_f32`, `layer_norm_f32`, `window_pool2x2_f32`,
 `csrc/f32_ops.cu`, and the f32 attention of `ops.attention`): the same
-functions, kept in f32 wherever the bf16 route rounds, on the CUDA cores
-(no TF32). Those calls count in the f32 kernels' records, not in the block
+functions, kept in f32 wherever the bf16 route rounds, with the products
+on the tensor cores in 3xTF32 (each f32 operand split into two TF32 parts,
+three products a term: f32's accuracy whatever the TF32 flags say). Those
+calls count in the f32 kernels' records, not in the block
 wrappers', whose records are the bf16 route's.
 
 Every wrapper computes its plain version for a CPU tensor and, for a CUDA
@@ -216,9 +218,12 @@ def _f32_only(name: str, x) -> None:
 
 def gemm_f32(a, w, bias, *, epilogue="bias", residual=None):
     """`gemm` on f32 operands, whose launches this wrapper counts: the f32
-    variant of `csrc/f32_ops.cu`, f32 operands and FMA accumulation on the
-    CUDA cores (no TF32, no tensor cores), K a multiple of 4; "res_bf16" is
-    residual + (acc + bias), which the bf16 kernel rounds in between."""
+    variant of `csrc/f32_ops.cu` (TMA + wgmma in 3xTF32: each operand split
+    into TF32 hi and lo parts with `cvt.rna`, hi*hi + hi*lo + lo*hi summed in
+    f32, so the result has f32's accuracy whatever
+    `torch.backends.cuda.matmul.allow_tf32` says), K a multiple of 4, a and
+    w 16-byte aligned; "res_bf16" is residual + (acc + bias), which the bf16
+    kernel rounds in between."""
     _f32_only("gemm_f32", a)
     return gemm(a, w, bias, epilogue=epilogue, residual=residual)
 

@@ -6,10 +6,13 @@ imports nothing of JAX:
     python -m pytest tests/test_torch_f32_kernels.py -m cuda --noconftest
 
 f32 bound: per output row, max |kernel - plain| <= 1e-4 * max |plain|, with
-TF32 off (the plain versions' products then run in f32 too): two f32
-accumulations of the same terms in different orders differ by a few f32
-ulps (~1e-7) of the row. bf16 bound (the small windows): 2e-2, as in
-`test_torch_kernels.py`.
+TF32 off (the plain versions' products then run in f32 too): the kernels'
+3xTF32 products keep ~2^-22 of each term (tests/test_torch_f32_split.py
+models them on the CPU, ~1e-6 of the row), and two f32 accumulations of the
+same terms in different orders differ by a few f32 ulps (~1e-7) of the row.
+The GEMM's tile is 128 x 144 with 32-deep K steps, the attention's 64 query
+rows by 64-key tiles: the cases below cross every edge of both. bf16 bound
+(the small windows): 2e-2, as in `test_torch_kernels.py`.
 """
 import numpy as np
 import pytest
@@ -50,7 +53,8 @@ def _rel_err(out, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("epilogue", list(fb.EPILOGUES))
 @pytest.mark.parametrize("m,n,k", [(300, 144, 144), (1000, 432, 576), (77, 36, 4608),
-                                   (129, 130, 12)])
+                                   (129, 130, 12), (257, 289, 144), (131, 1153, 4608),
+                                   (8192, 1152, 4608)])
 def test_gemm_f32(dev, m, n, k, epilogue):
     rng = np.random.default_rng(m + n + k)
     a = _t(rng, (m, k), dev)
@@ -107,8 +111,45 @@ def test_window_attention_f32(dev, w, qw, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 16, 64, 256])
+@pytest.mark.parametrize("qw", [4, 16, 64])
+@pytest.mark.parametrize("d", [16, 72, 128])
+def test_window_attention_f32_edges(dev, w, qw, d):
+    """Windows of 4 to 256 keys with query windows of 4, 16 and 64 (several
+    windows in a warp's 16 rows, a window over several 64-key tiles), 5
+    windows so that the rows end inside a 64-row block, q, k and v strided
+    views of one packed tensor."""
+    rng = np.random.default_rng(w * 1000 + qw * 10 + d)
+    b, nw, h = 2, 5, 2
+    qkv = _t(rng, (b, nw * max(w, qw), 3, h, d), dev)
+    q = qkv[:, :nw * qw, 0]
+    k, v = qkv[:, :nw * w, 1], qkv[:, :nw * w, 2]
+    out = tatt.window_attention(q, k, v, w, q_window=qw)
+    assert tatt.window_attention_f32.launches == 1
+    ref = tatt.window_reference(q, k, v, w, d ** -0.5, q_window=qw)
+    assert _rel_err(out, ref) < F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 72, 80, 128])
+@pytest.mark.parametrize("pad", [0, 2])
+def test_flash_attention_f32_strided(dev, d, pad):
+    """q, k and v from one packed qkv (B, L, 3, H, D + pad): with pad 2 the
+    rows are 8-byte but not 16-byte aligned (the kernel's 8-byte copies);
+    lengths off the 64-row block and the 64-key tile."""
+    rng = np.random.default_rng(d + pad)
+    b, l, h = 2, 333, 3
+    qkv = _t(rng, (b, l, 3, h, d + pad), dev)[..., :d]
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out = tatt.flash_attention(q, k, v)
+    assert tatt.flash_attention_f32.launches == 1
+    assert _rel_err(out, tatt.mha_reference(q, k, v)) < F32_TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lk,h,d", [(2, 1024, 1024, 8, 72), (1, 4096, 9, 8, 16),
-                                         (1, 300, 300, 2, 80)])
+                                         (1, 300, 300, 2, 80), (1, 4096, 4096, 2, 72),
+                                         (2, 200, 77, 2, 128), (1, 65, 9, 1, 16)])
 def test_flash_attention_f32(dev, b, lq, lk, h, d):
     rng = np.random.default_rng(lq + d)
     q, k, v = _t(rng, (b, lq, h, d), dev), _t(rng, (b, lk, h, d), dev), _t(rng, (b, lk, h, d), dev)
