@@ -485,7 +485,7 @@ RELEASE_CONFIG = os.path.join(HERE, "configs", "release_7b.json")
 # kernels (by name) that ptxas must compile without spills
 NO_SPILL = ("flash_fwd_mma", "window_fwd_mma", "dkv_mma", "dq_mma", "gemm_kernel",
             "int4_tile_kernel", "gemm_3xtf32_kernel", "attention_3xtf32_kernel",
-            "layer_norm_f32_kernel", "window_pool_f32_kernel")
+            "layer_norm_f32_kernel", "window_pool_f32_kernel", "layer_norm_bf16_kernel")
 
 
 def log(msg: str) -> None:
@@ -4953,7 +4953,9 @@ def kernels_phase(paths: dict, seed: int) -> list:
             log(f"kernel {kname} [{r['desc']}]: launches/call {n}, "
                 f"max_abs_err {r['err']:.3e}, row err / max|ref| {r['rel']:.3e} "
                 f"(tol {r.get('tol', ROW_TOL)}), ms {r['ms']:.4f}, bound_ms {r['bound'][0]:.4f} "
-                f"({r['bound'][1]}), share of bound {r['bound'][0] / r['ms']:.3f}, "
+                f"({r['bound'][1]}), share of bound {r['bound'][0] / r['ms']:.3f}"
+                + (" (above 1: L2-resident, the same inputs timed again and again)"
+                   if r["bound"][1] == "bytes" and r["bound"][0] > r["ms"] else "") + ", "
                 f"plain_ms {r['plain_ms']:.4f}, library_ms {r['lib_ms']}"
                 + (f", TFLOP/s {r['flops'] / r['ms'] / 1e9:.1f} (library "
                    f"{r['flops'] / r['lib_ms'] / 1e9:.1f})" if "flops" in r else "")

@@ -228,19 +228,41 @@ def gemm_f32(a, w, bias, *, epilogue="bias", residual=None):
     return gemm(a, w, bias, epilogue=epilogue, residual=residual)
 
 
+LAYER_NORM_MAX_D = 8192  # the widest row of the bf16 kernel (32 lanes x 32 chunks of 8)
+
+
+def layer_norm_tiling(d: int):
+    """(lanes a row, 16-byte chunks a lane, rows a pass) of the bf16 kernel
+    at width d, as `csrc/row_ops.cu` picks them (`ln_shape`): the least
+    lanes x chunks that covers the d / 8 chunks with at most 8 chunks a
+    lane, ties to more lanes (wider rows: 32 lanes of 12, 16, 24 or 32
+    chunks); a block's pass takes one row to each group of lanes, 256 /
+    lanes rows."""
+    chunks = d // 8
+    fits = [(g * -(-chunks // g), -g) for g in (32, 16, 8, 4, 2, 1) if -(-chunks // g) <= 8]
+    if fits:
+        lanes = -min(fits)[1]
+        k = -(-chunks // lanes)
+    else:
+        lanes, k = 32, next(k for k in (12, 16, 24, 32) if 32 * k >= chunks)
+    return lanes, k, 256 // lanes
+
+
 def layer_norm(x, g, b, eps):
     """LayerNorm(x) over the last dim with f32 statistics, rounded to x's
-    dtype. On a CUDA tensor it launches `csrc/row_ops.cu` (bf16 and
-    contiguous, gamma and beta too; D a multiple of 8), or for f32 inputs
-    the f32 variant (`layer_norm_f32`; D a multiple of 4); on a CPU tensor
-    it computes `layer_norm_reference`."""
+    dtype. On a CUDA tensor it launches `csrc/row_ops.cu` (bf16, contiguous
+    and 16-byte aligned, gamma and beta too; D a multiple of 8 up to
+    LAYER_NORM_MAX_D, any number of rows), or for f32 inputs the f32
+    variant (`layer_norm_f32`; D a multiple of 4); on a CPU tensor it
+    computes `layer_norm_reference`."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, g, b, eps)
     f32 = x.dtype == torch.float32
     _check_cuda("layer_norm", x, g, b, dtype=torch.float32 if f32 else torch.bfloat16)
     d = x.shape[-1]
     rows = x.numel() // d
-    if d % (4 if f32 else 8) or rows == 0 or g.shape != (d,) or b.shape != (d,):
+    if (d % (4 if f32 else 8) or (not f32 and d > LAYER_NORM_MAX_D) or rows == 0
+            or g.shape != (d,) or b.shape != (d,)):
         raise ValueError(f"layer_norm: unsupported shape {tuple(x.shape)}")
     return recompute_backward(lambda x, g, b: _layer_norm(x, g, b, eps),
                               lambda x, g, b: layer_norm_reference(x, g, b, eps), x, g, b)

@@ -425,16 +425,83 @@ def test_gemm_rejects_unaligned_pointers(dev):
     assert _rel_err(out, fb.gemm_reference(a, w, bias, epilogue="res_bf16", residual=res)) < TOL
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(100, 64), (8192, 1152), (37, 144)])
-def test_layer_norm_matches_plain(dev, rows, d):
+def _ulp_err(out, ref):
+    """max |out - ref| in bf16 ulps of ref, each element's ulp taken at
+    max(|ref|, 2^-8 of its row's max|ref|): below that the f32 statistics'
+    own rounding (the mean's, at |mean| up to ~100x the spread) is larger
+    than the ulp of a value near zero, in the plain version as in the
+    kernel."""
+    out, ref = out.float(), ref.float()
+    floor = ref.abs().amax(-1, keepdim=True).clamp_min(1e-30) * 2.0 ** -8
+    _, e = torch.frexp(torch.maximum(ref.abs(), floor))
+    return ((out - ref).abs() / torch.ldexp(torch.ones_like(ref), e - 8)).max().item()
+
+
+def _layer_norm_cases():
+    """Every width from 8 to the kernel's ceiling, each at 1 and 37 rows and
+    around the R rows of a block's pass (a ragged last pass, a whole one,
+    one row more); the first design's cases; one 8-frame Hiera-L forward's
+    rows at D = 144."""
     from rga3_tpu_torch.ops import fused_block as fb
 
-    rng = np.random.default_rng(d)
-    x = _bf16(rng, (rows, d), dev) * 3 + 1
+    cases = {(100, 64), (8192, 1152), (37, 144), (524288, 144)}
+    for d in (8, 16, 64, 144, 288, 576, 1152, fb.LAYER_NORM_MAX_D):
+        r = fb.layer_norm_tiling(d)[2]
+        cases.update((rows, d) for rows in (1, 37, r - 1, r, r + 1))
+    return sorted(cases, key=lambda c: (c[1], c[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", _layer_norm_cases())
+def test_layer_norm_matches_plain(dev, rows, d):
+    """Rows whose |mean| runs up to 100x their spread: every element within
+    one bf16 ulp of the plain version (and each row within TOL), one launch
+    a call."""
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(d + rows)
+    mean = torch.from_numpy(rng.uniform(-100, 100, (rows, 1)).astype(np.float32)).to(dev)
+    x = (_bf16(rng, (rows, d), dev).float() + mean).bfloat16()
     g, b = 1 + 0.1 * _bf16(rng, (d,), dev), 0.1 * _bf16(rng, (d,), dev)
+    tatt.reset_launches()
     out = fb.layer_norm(x, g, b, 1e-6)
-    assert _rel_err(out, fb.layer_norm_reference(x, g, b, 1e-6)) < TOL
+    assert fb.layer_norm.launches == 1
+    ref = fb.layer_norm_reference(x, g, b, 1e-6)
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, ref) < TOL
+    assert _ulp_err(out, ref) <= 1.0
+
+
+@pytest.mark.cuda
+def test_layer_norm_rejects_what_it_does_not_take(dev):
+    """A bf16 view 2 bytes past 16-byte alignment (x, gamma or beta) and a
+    row wider than the kernel's ceiling raise ValueError before any launch."""
+    from rga3_tpu_torch.ops import fused_block as fb
+
+    rng = np.random.default_rng(5)
+    d = 144
+    x = _bf16(rng, (64, d), dev)
+    g, b = 1 + 0.1 * _bf16(rng, (d,), dev), 0.1 * _bf16(rng, (d,), dev)
+
+    def offset(t):  # the same values, 2 bytes past 16-byte alignment
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    tatt.reset_launches()
+    for args in ((offset(x), g, b), (x, offset(g), b), (x, g, offset(b))):
+        with pytest.raises(ValueError, match="16-byte"):
+            fb.layer_norm(*args, 1e-6)
+    wide = fb.LAYER_NORM_MAX_D + 8
+    with pytest.raises(ValueError, match="unsupported shape"):
+        fb.layer_norm(_bf16(rng, (4, wide), dev), torch.ones(wide, dtype=torch.bfloat16,
+                                                                device=dev),
+                      torch.zeros(wide, dtype=torch.bfloat16, device=dev), 1e-6)
+    assert fb.layer_norm.launches == 0
+    out = fb.layer_norm(x, g, b, 1e-6)
+    assert fb.layer_norm.launches == 1
+    assert _ulp_err(out, fb.layer_norm_reference(x, g, b, 1e-6)) <= 1.0
 
 
 @pytest.mark.cuda
